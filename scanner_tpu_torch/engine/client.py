@@ -1,0 +1,305 @@
+"""Client: the user entry point.
+
+Capability parity: reference scannerpy/client.py (Client:58, run:1282,
+ingest_videos:965, new_table:418, table:500, summarize:548) — the
+single-node path, in-process.  The JAX package's cluster mode
+(master/worker, engine/service.py) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import torch
+
+from ..common import CacheMode, PerfParams, ScannerException
+from ..graph import ops as O
+from ..graph.streams_dsl import IOGenerator, StreamsGenerator, TaskPartitioner
+from ..storage import Database, make_storage
+from ..storage import metadata as md
+from ..storage.streams import NamedStream, NamedVideoStream
+from ..util.profiler import Profile, Profiler
+from .evaluate import default_pipeline_instances, resolve_device
+from .executor import LocalExecutor
+
+
+class Table:
+    """Read handle on a stored table (reference table.py:11)."""
+
+    def __init__(self, db: Database, name: str):
+        self._db = db
+        self._name = name
+
+    def id(self) -> int:
+        return self._db.table_descriptor(self._name).id
+
+    def name(self) -> str:
+        return self._name
+
+    def num_rows(self) -> int:
+        return self._db.table_descriptor(self._name).num_rows
+
+    def column_names(self) -> List[str]:
+        return self._db.table_descriptor(self._name).column_names()
+
+    def column(self, name: str):
+        desc = self._db.table_descriptor(self._name)
+        if desc.column_type(name) == md.ColumnType.VIDEO:
+            s = NamedVideoStream(self._db, self._name)
+        else:
+            s = NamedStream(self._db, self._name)
+            if name != "output":
+                # direct column access bypasses the default-column logic
+                return _ColumnReader(self._db, self._name, name)
+        return s
+
+    def committed(self) -> bool:
+        return self._db.table_is_committed(self._name)
+
+
+class _ColumnReader:
+    def __init__(self, db: Database, table: str, column: str):
+        self._stream = NamedStream(db, table)
+        self._column = column
+
+    def load(self, rows: Optional[Sequence[int]] = None):
+        yield from self._stream.load(rows=rows, column=self._column)
+
+
+class Client:
+    """Create one per database.
+
+    sc = Client(db_path="/data/db")            # runs on the CUDA card
+    frames = sc.io.Input([NamedVideoStream(sc, "movie", path="m.mp4")])
+    hist = sc.ops.Histogram(frame=frames)
+    sc.run(sc.io.Output(hist, [NamedStream(sc, "hists")]), PerfParams.estimate())
+
+    `device` is where device ops run: "cuda" (the default), "cuda:N",
+    "cpu", or a torch.device.  Asking for a card when none is present
+    raises; the client never moves to the CPU on its own.
+    """
+
+    def __init__(self, db_path: Optional[str] = None,
+                 storage_type: Optional[str] = None,
+                 device: Union[str, torch.device] = "cuda",
+                 num_load_workers: int = 2,
+                 num_save_workers: int = 2,
+                 # None = resolve at job launch: one instance per card on
+                 # multi-card hosts.  An explicit value — including 1 —
+                 # always wins.
+                 pipeline_instances: Optional[int] = None,
+                 decoder_threads: int = 1,
+                 storage_options: Optional[Dict[str, Any]] = None):
+        self.device = resolve_device(device)
+        storage_type = storage_type or "posix"
+        if db_path is None and storage_type == "posix":
+            db_path = os.path.expanduser("~/.scanner_tpu/db")
+        self._db = Database(make_storage(storage_type, db_path=db_path,
+                                         **(storage_options or {})))
+        self._db.load_megafile()
+        self._profiler = Profiler(node="client")
+        self._job_profiles: Dict[int, List[Profiler]] = {}
+        # job id -> {"trace_id"} for Client.trace()
+        self._job_traces: Dict[int, Dict[str, Any]] = {}
+        self._next_job_id = 0
+        self.ops = O.OpGenerator()
+        self.streams = StreamsGenerator()
+        self.io = IOGenerator(self)
+        self.partitioner = TaskPartitioner()
+        # None stays None here (the per-job resolution in run() reads
+        # it); the long-lived executor itself just needs a concrete int
+        self._pipeline_instances_arg = pipeline_instances
+        self._executor = LocalExecutor(
+            self._db, self._profiler, self.device,
+            num_load_workers=num_load_workers,
+            num_save_workers=num_save_workers,
+            pipeline_instances=pipeline_instances or 1,
+            decoder_threads=decoder_threads)
+
+    # -- context manager ----------------------------------------------------
+
+    def __enter__(self) -> "Client":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def stop(self) -> None:
+        """Nothing to release in local mode (kept for API parity)."""
+
+    # -- live telemetry -----------------------------------------------------
+
+    def metrics(self) -> Dict[str, Any]:
+        """Live metrics snapshot of this process's registry under
+        node="client" (docs/observability.md has the series catalog)."""
+        from ..util.metrics import merge_snapshots, registry
+        return merge_snapshots({"client": registry().snapshot()})
+
+    # -- data management ----------------------------------------------------
+
+    def ingest_videos(self, named_paths: Sequence, inplace: bool = False,
+                      force: bool = False):
+        """Ingest videos as tables; returns (descriptors, failures) where
+        failures is [(path, reason)] — a corrupt file is reported, not
+        raised, so it cannot abort a corpus ingest (reference
+        client.py:965 / ingest.cpp:872 failed_videos)."""
+        from ..video import ingest_videos
+        return ingest_videos(self._db, named_paths, inplace=inplace,
+                             force=force)
+
+    def ingest_images(self, name: str, paths: Sequence[str]):
+        from ..video.ingest import ingest_images
+        return ingest_images(self._db, name, paths)
+
+    def load_op(self, module_path: str, name: Optional[str] = None):
+        """Load a user op library: a Python module whose import registers
+        ops via @register_op (the TPU-native analogue of the reference's
+        dynamic .so op libraries, client.py:514 load_op)."""
+        import hashlib
+        import importlib.util
+        import sys
+        real = os.path.realpath(module_path)
+        # unique module name per file path: never collides with stdlib or
+        # a second op library of the same basename
+        digest = hashlib.md5(real.encode()).hexdigest()[:8]
+        base = os.path.splitext(os.path.basename(real))[0]
+        mod_name = name or f"scanner_tpu_userops_{base}_{digest}"
+        if mod_name in sys.modules:
+            return sys.modules[mod_name]
+        spec = importlib.util.spec_from_file_location(mod_name, module_path)
+        if spec is None or spec.loader is None:
+            raise ScannerException(f"cannot load op module: {module_path}")
+        mod = importlib.util.module_from_spec(spec)
+        # register before exec so pickled objects from the module resolve
+        # in other processes (workers load_op the same path)
+        sys.modules[mod_name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except Exception:
+            sys.modules.pop(mod_name, None)
+            raise
+        return mod
+
+    def batch_load(self, streams: Sequence, rows=None, workers: int = 4):
+        """Load several streams concurrently (reference Client.batch_load,
+        client.py:1270 multiprocessing pool -> thread pool here: the
+        decode path releases the GIL in C)."""
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(
+                lambda s: list(s.load(rows=rows)), streams))
+
+    def new_table(self, name: str, columns: Sequence[str],
+                  rows: Sequence[Sequence[Any]],
+                  overwrite: bool = False,
+                  codecs: Optional[Dict[str, str]] = None) -> Table:
+        """Create and commit a table from in-memory rows (row-major).
+        `codecs` maps a column to its row codec ("raw" by default;
+        "pickle" columns hold pickled python objects, e.g. frames)."""
+        self._db.new_table(name, columns, rows, overwrite=overwrite,
+                           codecs=codecs)
+        return Table(self._db, name)
+
+    def table(self, name: str) -> Table:
+        if not self._db.has_table(name):
+            raise ScannerException(f"no such table: {name}")
+        return Table(self._db, name)
+
+    def has_table(self, name: str) -> bool:
+        return self._db.has_table(name)
+
+    def delete_table(self, name: str) -> None:
+        self._db.delete_table(name)
+
+    def summarize(self) -> str:
+        lines = ["table                          rows  committed"]
+        for name in self._db.list_tables():
+            try:
+                desc = self._db.table_descriptor(name)
+                lines.append(f"{name:28} {desc.num_rows:6}  "
+                             f"{self._db.table_is_committed(name)}")
+            except Exception:
+                lines.append(f"{name:28}      ?  ?")
+        out = "\n".join(lines)
+        print(out)
+        return out
+
+    # -- execution ----------------------------------------------------------
+
+    def run(self, outputs: Union[O.OpNode, Sequence[O.OpNode]],
+            perf_params: Optional[PerfParams] = None,
+            cache_mode: CacheMode = CacheMode.Error,
+            show_progress: bool = True,
+            profiling: bool = True,
+            task_timeout: float = 0.0,
+            **kw) -> int:
+        """Execute a job set on this client's device; returns a job id
+        usable with get_profile."""
+        if isinstance(outputs, O.OpNode):
+            outputs = [outputs]
+        perf = perf_params or PerfParams.estimate()
+        if task_timeout:
+            perf.task_timeout = task_timeout
+        job_id = self._next_job_id
+        self._next_job_id += 1
+        prof = Profiler(node=f"job{job_id}")
+        if int(getattr(perf, "gang_hosts", 0) or 0):
+            import logging
+            logging.getLogger("scanner_tpu_torch.engine").info(
+                "gang_hosts=%d requested on a local run: executing as "
+                "a single-host job", perf.gang_hosts)
+        # instance-count resolution: explicit kwarg > PerfParams >
+        # explicit Client(pipeline_instances=) — any of which wins as
+        # given, including 1 — and only a fully-unset count resolves to
+        # one instance per card on multi-card hosts
+        ex = LocalExecutor(
+            self._db, prof, self.device,
+            num_load_workers=self._executor.num_load_workers,
+            num_save_workers=self._executor.num_save_workers,
+            decoder_threads=self._executor.decoder_threads,
+            pipeline_instances=kw.get(
+                "pipeline_instances",
+                default_pipeline_instances(
+                    perf.pipeline_instances_per_node
+                    or self._pipeline_instances_arg, self.device)))
+        ex.run(outputs, perf, cache_mode=cache_mode,
+               show_progress=show_progress)
+        self._job_profiles[job_id] = [prof]
+        self._job_traces[job_id] = {"trace_id": ex.last_trace_id}
+        return job_id
+
+    def load_frames(self, table: str, rows, column: str = "frame"):
+        """Decode exact frames of a stored video stream (public accessor
+        for the client-side read path, reference storage.py load)."""
+        from ..video import load_frames
+        return load_frames(self._db, table, rows, column)
+
+    def get_profile(self, job_id: int) -> Profile:
+        if job_id not in self._job_profiles:
+            raise ScannerException(f"no profile for job {job_id}")
+        return Profile(self._job_profiles[job_id])
+
+    def trace(self, job_id: int, path: Optional[str] = None) -> str:
+        """Write the finished job's span tree (job root → task → stage →
+        op) as one Perfetto/Chrome trace; returns the path written."""
+        from ..util import tracing as _tr
+        info = self._job_traces.get(job_id)
+        if info is None or not info.get("trace_id"):
+            raise ScannerException(
+                f"no trace for job {job_id} (was tracing disabled? "
+                "SCANNER_TPU_TRACING)")
+        spans = _tr.default_tracer().spans_for_trace(info["trace_id"])
+        path = path or f"scanner_trace_job{job_id}.json"
+        return _tr.write_chrome_trace(spans, path)
+
+    def stragglers(self, job_id: int) -> Dict[str, Any]:
+        """Straggler analytics for a job: per-stage span stats + the
+        top-N slowest tasks with their trace ids, from this process's
+        flight recorder."""
+        from ..util import tracing as _tr
+        info = self._job_traces.get(job_id)
+        if info is None or not info.get("trace_id"):
+            raise ScannerException(f"no trace for job {job_id}")
+        return _tr.straggler_summary(
+            _tr.default_tracer().spans_for_trace(info["trace_id"]))

@@ -1,0 +1,188 @@
+"""Hand-written CUDA kernels for hot ops, and their plain versions.
+
+The counterpart of the JAX package's kernels/pallas_ops.py.  Each kernel
+here has three parts side by side:
+
+  * the wrapper, which checks its input and launches the kernel on a
+    CUDA tensor, or runs the plain version on a CPU tensor.  It raises
+    on anything else: there is no fallback from the kernel to the plain
+    version;
+  * the plain PyTorch version of the same function, which the CPU tests
+    hold against the JAX package and `chip_smoke.py` holds the kernel
+    against on the card;
+  * a launch counter, a plain integer the wrapper adds one to where it
+    launches the kernel and nowhere else.
+
+Kernel sources live in `scanner_tpu_torch/csrc/`, are compiled with nvcc
+for sm_90a into a shared library with a plain C interface at first use
+(scanner_tpu_torch/native.py), and are called through ctypes on
+PyTorch's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from .. import native
+
+MAX_BINS = 128
+MAX_CHANNELS = 4  # csrc/histogram.cu kMaxChannels
+
+# launches of the histogram kernel (csrc/histogram.cu) in this process
+histogram_launches = 0
+
+_SRC = os.path.join(native.PKG_DIR, "csrc", "histogram.cu")
+_lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    global histogram_launches
+    histogram_launches = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def load_library():
+    """Build (first use only) and load the histogram kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = native.build_shared(
+                "libscanner_hist.so", [_SRC],
+                [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                 "-o", "{out}", _SRC])
+            lib = ctypes.CDLL(path)
+            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.hist_u8_frames.argtypes = [vp, vp, ll, ll, ci, ci, vp]
+            lib.hist_u8_frames.restype = ci
+            lib.hist_i32_ids.argtypes = [vp, vp, ll, ll, ci, vp]
+            lib.hist_i32_ids.restype = ci
+            _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _offset_bincount(ids: torch.Tensor, valid, rows: int,
+                     bins: int) -> torch.Tensor:
+    """(rows, n) int ids -> (rows, bins) int32 counts of the ids where
+    `valid` holds, by one bincount over ids offset by row."""
+    off = ids.to(torch.int64) + (torch.arange(
+        rows, device=ids.device, dtype=torch.int64) * bins)[:, None]
+    if valid is not None:
+        off = off[valid]
+    counts = torch.bincount(off.reshape(-1), minlength=rows * bins)
+    return counts.to(torch.int32).reshape(rows, bins)
+
+
+def histogram_ids_plain(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
+    """(R, P) int32 bin ids -> (R, bins) int32; ids outside [0, bins)
+    count nowhere (pallas_histogram's padding contract)."""
+    R = vals.shape[0]
+    return _offset_bincount(vals, (vals >= 0) & (vals < bins), R, bins)
+
+
+def histogram_frames_plain(frames: torch.Tensor,
+                           bins: int = 16) -> torch.Tensor:
+    """(B, H, W, C) uint8 -> (B, C, bins) int32 with bin = (v*bins)//256."""
+    b, c = frames.shape[0], frames.shape[-1]
+    vals = (frames.to(torch.int32) * bins) >> 8
+    vals = vals.reshape(b, -1, c).transpose(1, 2).reshape(b * c, -1)
+    return _offset_bincount(vals, None, b * c, bins).reshape(b, c, bins)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_bins(bins: int) -> None:
+    if not 1 <= bins <= MAX_BINS:
+        raise ValueError(f"bins must be in [1, {MAX_BINS}], got {bins}")
+
+
+def _launch_checked(fn, *args) -> None:
+    global histogram_launches
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"histogram kernel launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:
+        histogram_launches += 1
+
+
+def histogram_frames(frames: torch.Tensor, bins: int = 16) -> torch.Tensor:
+    """(B, H, W, C) uint8 -> (B, C, bins) int32 counts.
+
+    CUDA tensor: the hand-written kernel (csrc/histogram.cu,
+    hist_u8_frames).  CPU tensor: the plain version."""
+    _check_bins(bins)
+    if frames.dim() != 4:
+        raise ValueError(f"histogram_frames wants (B, H, W, C) frames, got "
+                         f"shape {tuple(frames.shape)}")
+    if frames.dtype != torch.uint8:
+        raise TypeError(f"histogram_frames wants uint8, got {frames.dtype}")
+    if frames.device.type == "cpu":
+        return histogram_frames_plain(frames, bins)
+    if frames.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {frames.device}")
+    b, h, w, c = frames.shape
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"histogram kernel takes 1..{MAX_CHANNELS} "
+                         f"channels (HWC layout), got C={c}")
+    if not frames.is_contiguous():
+        raise ValueError("histogram kernel wants a contiguous HWC tensor")
+    lib = load_library()
+    out = torch.zeros((b, c, bins), dtype=torch.int32, device=frames.device)
+    if b and h * w:
+        with torch.cuda.device(frames.device):
+            _launch_checked(lib.hist_u8_frames, frames.data_ptr(),
+                            out.data_ptr(), b, h * w * c, c, bins,
+                            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def histogram_ids(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
+    """(R, P) int32 bin ids -> (R, bins) int32 counts; ids outside
+    [0, bins) count nowhere.
+
+    CUDA tensor: the hand-written kernel (csrc/histogram.cu,
+    hist_i32_ids).  CPU tensor: the plain version."""
+    _check_bins(bins)
+    if vals.dim() != 2:
+        raise ValueError(f"histogram_ids wants (R, P) ids, got shape "
+                         f"{tuple(vals.shape)}")
+    if vals.dtype != torch.int32:
+        raise TypeError(f"histogram_ids wants int32, got {vals.dtype}")
+    if vals.device.type == "cpu":
+        return histogram_ids_plain(vals, bins)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {vals.device}")
+    if not vals.is_contiguous():
+        raise ValueError("histogram kernel wants a contiguous tensor")
+    lib = load_library()
+    R, P = vals.shape
+    out = torch.zeros((R, bins), dtype=torch.int32, device=vals.device)
+    if R and P:
+        with torch.cuda.device(vals.device):
+            _launch_checked(lib.hist_i32_ids, vals.data_ptr(),
+                            out.data_ptr(), R, P, bins,
+                            torch.cuda.current_stream().cuda_stream)
+    return out

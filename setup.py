@@ -21,7 +21,9 @@ setup(
     description=("TPU-native framework for efficient analysis of large "
                  "video datasets (scanner-research/scanner capabilities, "
                  "JAX/XLA execution)"),
-    packages=find_packages(include=["scanner_tpu", "scanner_tpu.*"]),
+    packages=find_packages(include=["scanner_tpu", "scanner_tpu.*",
+                                    "scanner_tpu_torch",
+                                    "scanner_tpu_torch.*"]),
     package_data={"scanner_tpu.video": ["libscvid.so"]},
     python_requires=">=3.10",
     install_requires=[

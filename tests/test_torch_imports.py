@@ -1,0 +1,88 @@
+"""The port stands alone: scanner_tpu_torch and chip_smoke.py import
+neither jax nor the JAX package (scanner_tpu), every relative import of
+the port resolves inside it, and asking for a card that is not there
+raises instead of carrying on on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "scanner_tpu_torch")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _module_exists(base_dir, dotted):
+    path = os.path.join(base_dir, *dotted.split(".")) if dotted else base_dir
+    return os.path.isfile(path + ".py") or os.path.isfile(
+        os.path.join(path, "__init__.py"))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    here = os.path.dirname(path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.ImportFrom):
+            base = here
+            for _ in range(node.level - 1):
+                base = os.path.dirname(base)
+            assert os.path.commonpath([base, PKG]) == PKG, \
+                f"{path}:{node.lineno} relative import leaves the port"
+            mod = node.module or ""
+            ok = _module_exists(base, mod) or all(
+                _module_exists(base, f"{mod}.{a.name}".strip("."))
+                for a in node.names)
+            assert ok, f"{path}:{node.lineno} unresolved import {mod!r}"
+            continue
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax",
+                               "scanner_tpu"), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def test_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['scanner_tpu'] = None; "
+            "import scanner_tpu_torch, scanner_tpu_torch.kernels; "
+            "import scanner_tpu_torch.kernels.cuda_ops; "
+            "print('ok')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_cuda_client_raises_without_card(tmp_path, monkeypatch):
+    import scanner_tpu_torch as st
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(st.ScannerException, match="no CUDA card"):
+        st.Client(db_path=str(tmp_path / "db"))
+    with pytest.raises(st.ScannerException, match="no CUDA card"):
+        st.Client(db_path=str(tmp_path / "db"), device="cuda:0")
+    st.Client(db_path=str(tmp_path / "db"), device="cpu")
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    from scanner_tpu_torch.kernels import cuda_ops
+    x = torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no histogram kernel"):
+        cuda_ops.histogram_frames(x)
