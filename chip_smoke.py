@@ -8,22 +8,44 @@ Phases, each printed on its own line; any failure exits non-zero:
 
   1. environment  torch / CUDA versions, the card's name and power limit,
                   which optional libraries were found;
-  2. build        the CUDA histogram kernel (nvcc, sm_90a) from the
-                  checkout's sources, and libscvid where libav is present;
-  3. kernel       the kernel against its plain PyTorch version, bit for
-                  bit, at the main path's shape (16 x 480 x 640 x 3), a
-                  ragged shape, flat frames, and the int32-id entry;
-  4. color        the YUV420 -> RGB conversion on the card against the
+  2. build        the CUDA histogram and flash-attention kernels (nvcc,
+                  sm_90a, both started together) from the checkout's
+                  sources, and libscvid where libav is present;
+  3. kernel       the histogram kernel against its plain PyTorch version,
+                  bit for bit, at the main path's shape (16 x 480 x 640
+                  x 3), a ragged shape, flat frames, and the int32-id
+                  entry;
+  4. attention_kernel  the flash-attention kernel against its plain
+                  version (rtol 2e-4, atol 2e-5 on m, l and acc / l) at
+                  (BH, T, D) = (16, 2048, 128) causal and not, D = 8,
+                  D = 32 causal and not (the train step's call), a ragged
+                  Tq != Tk, nonzero offsets, a fully masked block and a
+                  chained two-block update;
+  5. color        the YUV420 -> RGB conversion on the card against the
                   host numpy flavor, bit for bit;
-  5. main path    configs 1 (Histogram) and 2 (Histogram ->
+  6. main path    configs 1 (Histogram) and 2 (Histogram ->
                   HistogramDelta), and HistDiff -> ShotBoundary, over 600
                   frames of 640 x 480 with PerfParams.manual(32, 96)
                   through Client(device="cuda");
                   the stored rows must equal the port's own
                   Client(device="cpu") run byte for byte, and the kernel's
                   launch counter must move in each run;
-  6. timings      the kernel, its bound, its plain version and one
-                  torch.bincount call at the main path's shape.
+  7. pose_serve   PoseDetect(width=8) with the shipped weights over a
+                  stored table of 48 x 48 blob frames through
+                  Client(device="cuda"): mean localization error under
+                  5 px, keypoints against the port's Client(device="cpu")
+                  run, frames/s;
+  8. pose_train   VideoPoseNet(width=32, temporal_layers=2) trained five
+                  Adam steps on one (2, 2048, 64, 64, 3) clip batch with
+                  ring attention on one rank through the flash kernel
+                  (impl="cuda"): finite, decreasing losses, two kernel
+                  launches per step, the first two losses within rel
+                  1e-3 of impl="xla" (the plain ring), step time; the
+                  kernel against its plain version on the q, k, v that
+                  the first step's first temporal block gave it;
+  9. timings      each kernel at its timing shape with its bound, its
+                  plain version and one library call (torch.bincount;
+                  F.scaled_dot_product_attention in f32).
 
 The frames are made from --seed (the repo's deterministic test pattern
 plus seeded noise) and stored with Client.new_table as a pickled-frame
@@ -56,6 +78,13 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # integer operations per input byte in the kernel: multiply, shift, add
 HIST_OPS_PER_BYTE = 3
+# the flash kernel's products run as f32 FMAs on the CUDA cores: the
+# H100 SXM's f32 rate outside the tensor cores
+FP32_FLOPS_PER_S = 67e12
+FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
+FLASH_SHAPE = (16, 2048, 128)   # (BH, T, D), tools/tpu_window.py's
+POSE_SIZE, TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS = 48, 64, 2, 5
+TRAIN_TIME = 2048               # frames per train clip: a long clip
 
 W, H, C, BINS = 640, 480, 3, 16
 WORK, IO = 32, 96
@@ -158,6 +187,246 @@ def run_config(client, st, config, out: str):
                   or k.startswith("evaluate:")}
 
 
+def flash_inputs(g, BH, Tq, Tk, D, carry, dev):
+    """Seeded q (pre-scaled), k, v and a carry: empty (m = NEG_INF,
+    l = 0, acc = 0) or set (the state after an earlier block)."""
+    import torch
+    from scanner_tpu_torch.kernels.attention import NEG_INF
+    q = torch.randn(BH, Tq, D, generator=g) * D ** -0.5
+    k = torch.randn(BH, Tk, D, generator=g)
+    v = torch.randn(BH, Tk, D, generator=g)
+    if carry:
+        m = torch.randn(BH, Tq, generator=g)
+        l = torch.rand(BH, Tq, generator=g) * 2.5 + 0.5
+        acc = torch.randn(BH, Tq, D, generator=g)
+    else:
+        m = torch.full((BH, Tq), NEG_INF)
+        l = torch.zeros(BH, Tq)
+        acc = torch.zeros(BH, Tq, D)
+    return [t.to(dev) for t in (q, k, v, m, l, acc)]
+
+
+def compare_flash(got, want, what: str, errs: dict) -> None:
+    """Holds the kernel's (m, l, acc) against the plain version's within
+    FLASH_RTOL / FLASH_ATOL on m, l and acc / l, and raises each entry of
+    `errs` to the largest |kernel - plain| seen."""
+    import torch
+    torch.cuda.synchronize()
+    m, l, acc = got
+    wm, wl, wacc = want
+    pairs = {"m": (m, wm), "l": (l, wl),
+             "out": (acc / l.clamp_min(1e-30)[..., None],
+                     wacc / wl.clamp_min(1e-30)[..., None])}
+    for name, (a, b) in pairs.items():
+        check(bool(torch.isfinite(a).all()),
+              f"flash kernel: non-finite {name} ({what})")
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        errs[name] = max(errs[name], err)
+        check(bool(((a - b).abs()
+                    <= FLASH_ATOL + FLASH_RTOL * b.abs()).all()),
+              f"flash kernel disagrees with its plain version on "
+              f"{name}: {what} (max abs err {err})")
+
+
+def check_attention_kernel(dev, seed: int, errs: dict) -> int:
+    """The flash kernel against flash_block_update_plain on the card;
+    returns the number of checks."""
+    import torch
+    from scanner_tpu_torch.kernels import attention
+    g = torch.Generator().manual_seed(seed)
+
+    def compare(got, want, what):
+        compare_flash(got, want, what, errs)
+
+    BH, T, D = FLASH_SHAPE
+    cases = [  # (what, BH, Tq, Tk, D, q_off, k_off, causal, carry)
+        ("16x2048x128", BH, T, T, D, 0, 0, False, False),
+        ("16x2048x128 causal", BH, T, T, D, 0, 0, True, False),
+        ("D=8 causal", 8, 512, 512, 8, 0, 0, True, False),
+        ("D=32 causal", 8, 2048, 2048, 32, 0, 0, True, False),
+        ("D=32, the train step's call", 8, 2048, 2048, 32, 0, 0, False,
+         False),
+        ("ragged Tq=193 Tk=77", 3, 193, 77, 40, 0, 0, False, True),
+        ("offsets q_off=100 k_off=37", 5, 130, 150, 64, 100, 37, True,
+         True),
+    ]
+    for what, bh, tq, tk, d, qo, ko, causal, carry in cases:
+        args = flash_inputs(g, bh, tq, tk, d, carry, dev)
+        compare(attention.flash_block_update(*args, qo, ko, causal=causal),
+                attention.flash_block_update_plain(*args, qo, ko,
+                                                   causal=causal), what)
+    for carry in (False, True):   # a block after every query: no change
+        args = flash_inputs(g, 4, 100, 64, 32, carry, dev)
+        got = attention.flash_block_update(*args, 0, 500, causal=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, args[3:])),
+              f"flash kernel changed the state on a fully masked block "
+              f"(carry={carry})")
+    q, k, v, m, l, acc = flash_inputs(g, 4, 256, 512, 32, True, dev)
+    got = want = (m, l, acc)
+    for blk, k_off in ((slice(0, 256), 256), (slice(256, 512), 0)):
+        got = attention.flash_block_update(q, k[:, blk], v[:, blk], *got,
+                                           256, k_off, causal=True)
+        want = attention.flash_block_update_plain(
+            q, k[:, blk], v[:, blk], *want, 256, k_off, causal=True)
+    compare(got, want, "chained two-block update")
+    return len(cases) + 3
+
+
+def run_pose(client, st, out: str) -> float:
+    """PoseDetect(width=8, the shipped weights) over the "blob" table
+    into `out`; returns wall seconds."""
+    poses = client.ops.PoseDetect(
+        frame=client.io.Input([st.NamedStream(client, "blob")]), width=8)
+    t0 = time.time()
+    client.run(client.io.Output(poses, [st.NamedStream(client, out)]),
+               st.PerfParams.manual(64, 256), show_progress=False,
+               cache_mode=st.CacheMode.Overwrite)
+    return time.time() - t0
+
+
+def pose_serve(st, work: str, seed: int, n: int = 512) -> dict:
+    """The serve path: PoseDetect on the card against the port's CPU run
+    and against the blobs' true centers."""
+    import numpy as np
+    from scanner_tpu_torch.kernels import attention, cuda_ops
+    from scanner_tpu_torch.models import pose_train
+    clips, _, centers = pose_train.synth_batch(
+        np.random.RandomState(seed), n // 8, 8, POSE_SIZE)
+    frames = clips.reshape(n, POSE_SIZE, POSE_SIZE, 3)
+    centers = centers.reshape(n, 2)
+    db_path = os.path.join(work, "pose_db")
+    gpu = st.Client(db_path=db_path, device="cuda")
+    gpu.new_table("blob", ["frame"], [[f] for f in frames],
+                  codecs={"frame": "pickle"})
+    cuda_ops.reset_counts()
+    attention.reset_counts()
+    wall = run_pose(gpu, st, "poses_cuda")
+    launches = (cuda_ops.histogram_launches, attention.flash_launches)
+    wall2 = run_pose(gpu, st, "poses_cuda2")
+    cpu = st.Client(db_path=db_path, device="cpu")
+    cpu_wall = run_pose(cpu, st, "poses_cpu")
+    got = np.stack(list(st.NamedStream(cpu, "poses_cuda").load()))
+    ref = np.stack(list(st.NamedStream(cpu, "poses_cpu").load()))
+    check(got.shape == ref.shape == (n, 17, 3)
+          and bool(np.isfinite(got).all()),
+          f"PoseDetect output {got.shape} is not one finite (17, 3) "
+          f"keypoint set per frame")
+    err = np.hypot(got[:, 0, 0] * 4 - centers[:, 0],
+                   got[:, 0, 1] * 4 - centers[:, 1])
+    check(float(err.mean()) < 5.0,
+          f"PoseDetect mean localization error {err.mean():.3f} px >= 5")
+    same = float((got[:, 0, :2] == ref[:, 0, :2]).all(axis=1).mean())
+    step = float(np.abs(got[:, 0, :2] - ref[:, 0, :2]).max())
+    score_err = float(np.abs(got[:, :, 2] - ref[:, :, 2]).max())
+    check(step <= 1.0, f"blob keypoint differs by {step} heatmap cells "
+                       f"between device=cuda and device=cpu")
+    return dict(frames=n, geometry=f"{POSE_SIZE}x{POSE_SIZE}",
+                mean_err_px=float(err.mean()),
+                cpu_mean_err_px=float(np.hypot(
+                    ref[:, 0, 0] * 4 - centers[:, 0],
+                    ref[:, 0, 1] * 4 - centers[:, 1]).mean()),
+                kp0_identical_to_cpu=same, kp0_max_cell_diff=step,
+                max_score_diff_vs_cpu=score_err,
+                fps_first_run=n / wall, fps_second_run=n / wall2,
+                cpu_fps=n / cpu_wall, histogram_launches=launches[0],
+                flash_launches=launches[1])
+
+
+def pose_train(dev, seed: int, errs: dict) -> dict:
+    """The train path: five Adam steps with ring attention through the
+    flash kernel, against two steps through the plain ring; then the
+    kernel against its plain version on the q, k, v that the first
+    step's first temporal block passed to the ring."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.kernels import attention, cuda_ops
+    from scanner_tpu_torch.kernels.attention import NEG_INF
+    from scanner_tpu_torch.models import pose as pose_mod
+    from scanner_tpu_torch.models import pose_train as ptrain
+    from scanner_tpu_torch.parallel import make_ring_attention
+    clip, target, _ = ptrain.synth_batch(np.random.RandomState(seed),
+                                         TRAIN_BATCH, TRAIN_TIME, TRAIN_SIZE)
+    clip = torch.from_numpy(clip).to(dev)
+    target = torch.from_numpy(target).to(dev)
+    seen = []   # (q, k, v) of the ring's first call
+
+    def model(impl):
+        ring = make_ring_attention(impl=impl)
+
+        def attn(q, k, v):
+            if not seen:
+                seen.append((q.detach(), k.detach(), v.detach()))
+            return ring(q, k, v)
+        return pose_mod.init_params(seed, device=dev, width=32,
+                                    temporal_layers=2, attn_fn=attn)
+
+    ref = model("xla")
+    _, step = pose_mod.make_train_step(ref)
+    xla_losses = [float(step(clip, target)) for _ in range(2)]
+    del ref, step
+    seen.clear()
+    net = model("cuda")
+    C = net.Backbone_0.out_ch
+    heads = net.TemporalBlock_0.heads
+    _, step = pose_mod.make_train_step(net)
+    losses, secs = [], []
+    cuda_ops.reset_counts()
+    attention.reset_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(step(clip, target)))
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    launches = attention.flash_launches
+    hist = cuda_ops.histogram_launches
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(losses[1] < losses[0] and losses[-1] < losses[0],
+          f"loss did not decrease: {losses}")
+    check(launches == 2 * TRAIN_STEPS,
+          f"flash kernel launched {launches} times in {TRAIN_STEPS} "
+          f"steps; 2 per forward on one rank expected")
+    for a, b in zip(losses[:2], xla_losses):
+        check(abs(a - b) <= 1e-3 * abs(b),
+              f"impl=cuda losses {losses[:2]} differ from impl=xla "
+              f"{xla_losses} by more than rel 1e-3")
+    step_s = float(np.mean(secs[2:]))
+    # the kernel on the step's own inputs, laid out as the one-rank kernel
+    # ring lays them out: (B, T, H, D) -> (B * H, T, D), q pre-scaled,
+    # from an empty carry, not causal
+    q, k, v = seen[0]
+    B, T, H, D = q.shape
+    check((B, T, H * D) == (TRAIN_BATCH, TRAIN_TIME, C) and H == heads,
+          f"the ring saw q {tuple(q.shape)}, not (B, T, heads, C / heads)")
+
+    def rows(x, s=1.0):
+        return (x.float() * s).permute(0, 2, 1, 3).reshape(B * H, T, D)
+    args = [rows(q, D ** -0.5), rows(k), rows(v),
+            torch.full((B * H, T), NEG_INF, device=dev),
+            torch.zeros(B * H, T, device=dev),
+            torch.zeros(B * H, T, D, device=dev)]
+    step_errs = {"m": 0.0, "l": 0.0, "out": 0.0}
+    compare_flash(attention.flash_block_update(*args, 0, 0),
+                  attention.flash_block_update_plain(*args, 0, 0),
+                  "the first train step's q, k, v", step_errs)
+    for name, err in step_errs.items():
+        errs[name] = max(errs[name], err)
+    flash_ms = cuda_ms(lambda: attention.flash_block_update(*args, 0, 0),
+                       20)
+    return dict(clip=f"{TRAIN_BATCH}x{TRAIN_TIME}x{TRAIN_SIZE}x"
+                     f"{TRAIN_SIZE}x3", width=32, channels=C, heads=heads,
+                head_dim=D, losses=json.dumps(losses),
+                xla_losses=json.dumps(xla_losses),
+                step_s=json.dumps([round(x, 4) for x in secs]),
+                steady_step_s=step_s,
+                frames_per_s=TRAIN_BATCH * TRAIN_TIME / step_s,
+                flash_launches=launches, histogram_launches=hist,
+                step_inputs_max_abs_err=json.dumps(step_errs),
+                flash_ms_at_step_shape=flash_ms,
+                flash_share_of_step=2 * flash_ms / (step_s * 1e3))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=600)
@@ -179,7 +448,8 @@ def main() -> int:
     import scanner_tpu_torch as st
     import scanner_tpu_torch.kernels  # noqa: F401
     from scanner_tpu_torch import native
-    from scanner_tpu_torch.kernels import color, cuda_ops
+    from scanner_tpu_torch.kernels import attention, color, cuda_ops
+    import scanner_tpu_torch.models  # noqa: F401  (registers PoseDetect)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -192,8 +462,17 @@ def main() -> int:
           google_crc32c=have_module("google_crc32c"),
           main_path_source="stored-frame-table")
 
-    # -- build ----------------------------------------------------------
-    cuda_ops.load_library()
+    # explicit: full f32 in the plain versions' matmuls and in the
+    # models' f32 convolutions (the last heatmap layer), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- build: one nvcc per kernel source, started together -------------
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(cuda_ops.load_library),
+                    pool.submit(attention.load_library)]:
+            fut.result()
     scvid = "skipped (no libav; the main path reads a stored frame table)"
     if libav:
         from scanner_tpu_torch.video import lib as vlib
@@ -201,6 +480,8 @@ def main() -> int:
         scvid = f"{native.build_seconds.get('libscvid.so', 0.0):.2f}s"
     phase("build", histogram_kernel_s=round(
         native.build_seconds.get("libscanner_hist.so", 0.0), 3),
+        flash_kernel_s=round(
+            native.build_seconds.get("libscanner_flash.so", 0.0), 3),
         libscvid=repr(scvid))
 
     # -- kernel check ---------------------------------------------------
@@ -233,6 +514,15 @@ def main() -> int:
     compare(cuda_ops.histogram_ids(ids.to(dev), BINS),
             cuda_ops.histogram_ids_plain(ids, BINS), "int32 ids + padding")
     phase("kernel", checks=5, max_abs_err=max_err, tolerance=0)
+
+    # -- flash-attention kernel check -----------------------------------
+    flash_errs = {"m": 0.0, "l": 0.0, "out": 0.0}
+    n_checks = check_attention_kernel(dev, args.seed, flash_errs)
+    phase("attention_kernel", checks=n_checks,
+          max_abs_err_m=flash_errs["m"], max_abs_err_l=flash_errs["l"],
+          max_abs_err_acc_over_l=flash_errs["out"],
+          tolerance=f"rtol={FLASH_RTOL},atol={FLASH_ATOL}",
+          fully_masked_unchanged=True)
 
     # -- color check ----------------------------------------------------
     rng = np.random.RandomState(args.seed)
@@ -293,6 +583,13 @@ def main() -> int:
               config1_stage_s=json.dumps(stages[1], sort_keys=True),
               config2_stage_s=json.dumps(stages[2], sort_keys=True))
 
+        # -- the pose model: serve, then train ------------------------
+        phase("pose_serve", **pose_serve(st, work, args.seed))
+        train = pose_train(dev, args.seed, flash_errs)
+        flash_launches = train["flash_launches"]
+        flash_err = max(flash_errs.values())
+        phase("pose_train", **train)
+
         # -- timings at the main path's shape -------------------------
         x = torch.from_numpy(frames[:16]).to(dev)
         b, hh, ww, c = x.shape
@@ -311,6 +608,36 @@ def main() -> int:
         phase("timings", shape=f"{b}x{hh}x{ww}x{c}", kernel_ms=ms,
               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
               launches_per_600_frame_run=launches[1], card=repr(card))
+
+        # -- the flash kernel at tools/tpu_window.py's shape, from an
+        # empty carry, where one update divided by l is exactly
+        # scaled_dot_product_attention (q arrives pre-scaled) -----------
+        fb, ft, fd = FLASH_SHAPE
+        fargs = flash_inputs(torch.Generator().manual_seed(args.seed), fb,
+                             ft, ft, fd, False, dev)
+        fq, fk, fv = fargs[:3]
+        f_ms = cuda_ms(lambda: attention.flash_block_update(*fargs, 0, 0),
+                       20)
+        f_plain_ms = cuda_ms(
+            lambda: attention.flash_block_update_plain(*fargs, 0, 0), 5)
+        f_library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                fq, fk, fv, scale=1.0), 20)
+        f_flops = 4.0 * fb * ft * ft * fd
+        # q, k, v and the carry (m, l, acc) read once, (m, l, acc) written
+        f_bytes = 4.0 * (3 * fb * ft * fd + 2 * (fb * ft * fd + 2 * fb * ft))
+        f_t_ops = f_flops / FP32_FLOPS_PER_S * 1e3
+        f_t_bytes = f_bytes / HBM_BYTES_PER_S * 1e3
+        f_bound_ms = max(f_t_ops, f_t_bytes)
+        phase("timings", kernel="flash_block_update",
+              shape=f"{fb}x{ft}x{ft}x{fd}", causal=False, kernel_ms=f_ms,
+              plain_ms=f_plain_ms, library_ms=f_library_ms,
+              library="F.scaled_dot_product_attention(f32)",
+              bound_ms=f_bound_ms,
+              bound_by="operations(f32 67 TFLOP/s)"
+              if f_t_ops >= f_t_bytes else "bytes",
+              achieved_tflops=f_flops / (f_ms * 1e-3) / 1e12,
+              launches_per_train_step=2, card=repr(card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -327,6 +654,18 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+    }, {
+        "name": "flash_block_update",
+        "route": "cuda",
+        "source": "scanner_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "scanner_tpu/kernels/pallas_attention.py:50",
+        "launches": flash_launches,
+        "max_abs_err": flash_err,
+        "ms": f_ms,
+        "plain_ms": f_plain_ms,
+        "bound_ms": f_bound_ms,
+        "bound_by": "operations" if f_t_ops >= f_t_bytes else "bytes",
+        "library_ms": f_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

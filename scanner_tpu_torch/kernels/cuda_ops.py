@@ -55,17 +55,24 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def build_kernel_library(name: str, src: str) -> str:
+    """Build (first use only) `_build/<name>` from one CUDA source with
+    nvcc for sm_90a, as a shared library with a plain C interface;
+    returns its path."""
+    return native.build_shared(
+        name, [src],
+        [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-o", "{out}", src])
+
+
 def load_library():
     """Build (first use only) and load the histogram kernel library."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            path = native.build_shared(
-                "libscanner_hist.so", [_SRC],
-                [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-o", "{out}", _SRC])
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(build_kernel_library("libscanner_hist.so",
+                                                   _SRC))
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.hist_u8_frames.argtypes = [vp, vp, ll, ll, ci, ci, vp]
             lib.hist_u8_frames.restype = ci

@@ -1,6 +1,7 @@
-"""The CUDA histogram kernel against its plain version, bit for bit, on
-the card.  Marked `cuda`: it needs an NVIDIA card with nvcc (sm_90a) and
-skips elsewhere.  Run on the card with
+"""The CUDA kernels against their plain versions on the card: the
+histogram bit for bit, the flash-attention update within f32 tolerance.
+Marked `cuda`: they need an NVIDIA card with nvcc (sm_90a) and skip
+elsewhere.  Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -70,3 +71,97 @@ def test_color_on_card_bit_exact(card):
     flat = np.random.RandomState(0).randint(0, 256, (3, n)).astype(np.uint8)
     got = color.yuv420_to_rgb_device(torch.from_numpy(flat).to(card), h, w)
     assert (got.cpu().numpy() == color.yuv420_to_rgb_host(flat, h, w)).all()
+
+
+# -- the flash-attention kernel (csrc/flash_attention.cu) ------------------
+# against flash_block_update_plain on the card, at the shapes chip_smoke.py
+# checks.  Tolerance rtol 2e-4, atol 2e-5 on m, l and acc / l
+# (tests/test_parallel.py's): both are f32 and differ in summation order
+# and K tiling.  TF32 is off for the plain version's matmuls.
+
+FLASH_CASES = {
+    # (BH, Tq, Tk, D, q_off, k_off, causal, carry)
+    "long_d128": (16, 2048, 2048, 128, 0, 0, False, False),
+    "long_d128_causal": (16, 2048, 2048, 128, 0, 0, True, False),
+    "d8": (8, 512, 512, 8, 0, 0, True, False),
+    "d32": (8, 2048, 2048, 32, 0, 0, True, False),
+    "d32_train_step": (8, 2048, 2048, 32, 0, 0, False, False),
+    "ragged": (3, 193, 77, 40, 0, 0, False, True),
+    "offsets": (5, 130, 150, 64, 100, 37, True, True),
+}
+
+
+def _flash_inputs(seed, BH, Tq, Tk, D, carry):
+    from scanner_tpu_torch.kernels.attention import NEG_INF
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(BH, Tq, D, generator=g) * D ** -0.5
+    k = torch.randn(BH, Tk, D, generator=g)
+    v = torch.randn(BH, Tk, D, generator=g)
+    if carry:
+        m = torch.randn(BH, Tq, generator=g)
+        l = torch.rand(BH, Tq, generator=g) * 2.5 + 0.5
+        acc = torch.randn(BH, Tq, D, generator=g)
+    else:
+        m = torch.full((BH, Tq), NEG_INF)
+        l = torch.zeros(BH, Tq)
+        acc = torch.zeros(BH, Tq, D)
+    return q, k, v, m, l, acc
+
+
+def _flash_close(got, want):
+    m, l, acc = (t.cpu() for t in got)
+    wm, wl, wacc = (t.cpu() for t in want)
+    for t in (m, l, acc):
+        assert torch.isfinite(t).all()
+    torch.testing.assert_close(m, wm, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(l, wl, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                               wacc / wl.clamp_min(1e-30)[..., None],
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(card, case):
+    from scanner_tpu_torch.kernels import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH, Tq, Tk, D, qo, ko, causal, carry = FLASH_CASES[case]
+    args = [t.to(card) for t in _flash_inputs(len(case), BH, Tq, Tk, D,
+                                              carry)]
+    want = attention.flash_block_update_plain(*args, qo, ko, causal=causal)
+    before = attention.flash_launches
+    got = attention.flash_block_update(*args, qo, ko, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.flash_launches == before + 1
+    _flash_close(got, want)
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_flash_kernel_fully_masked_block(card, carry):
+    from scanner_tpu_torch.kernels import attention
+    args = [t.to(card) for t in _flash_inputs(1, 4, 100, 64, 32, carry)]
+    got = attention.flash_block_update(*args, 0, 500, causal=True)
+    torch.cuda.synchronize()
+    for g, a in zip(got, args[3:]):
+        assert torch.equal(g, a)
+
+
+def test_flash_kernel_chained_blocks(card):
+    from scanner_tpu_torch.kernels import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, m, l, acc = (t.to(card) for t in
+                          _flash_inputs(2, 4, 256, 512, 32, True))
+    got = want = (m, l, acc)
+    for blk, k_off in ((slice(0, 256), 256), (slice(256, 512), 0)):
+        got = attention.flash_block_update(q, k[:, blk], v[:, blk], *got,
+                                           256, k_off, causal=True)
+        want = attention.flash_block_update_plain(
+            q, k[:, blk], v[:, blk], *want, 256, k_off, causal=True)
+    torch.cuda.synchronize()
+    _flash_close(got, want)
+
+
+def test_flash_kernel_refuses_wide_heads(card):
+    from scanner_tpu_torch.kernels import attention
+    args = [t.to(card) for t in _flash_inputs(0, 1, 8, 8, 136, False)]
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_block_update(*args, 0, 0)

@@ -64,6 +64,9 @@ def test_import_with_jax_blocked():
             "sys.modules['scanner_tpu'] = None; "
             "import scanner_tpu_torch, scanner_tpu_torch.kernels; "
             "import scanner_tpu_torch.kernels.cuda_ops; "
+            "import scanner_tpu_torch.kernels.attention; "
+            "import scanner_tpu_torch.parallel; "
+            "import scanner_tpu_torch.models.pose_train; "
             "print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -86,3 +89,17 @@ def test_kernel_wrapper_refuses_other_devices():
     x = torch.zeros((1, 2, 2, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no histogram kernel"):
         cuda_ops.histogram_frames(x)
+
+
+def test_pose_entry_points_raise_without_card(monkeypatch):
+    """init_params and train_pose default to the card and raise without
+    one; PoseDetect runs on the device the engine hands it."""
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.models import pose, pose_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(st.ScannerException, match="no CUDA card"):
+        pose.init_params(0, width=8)
+    with pytest.raises(st.ScannerException, match="no CUDA card"):
+        pose_train.train_pose(steps=1)
+    m = pose.init_params(0, device="cpu", width=8)
+    assert next(m.parameters()).device.type == "cpu"
