@@ -10,17 +10,23 @@ Phases, each printed on its own line; any failure exits non-zero:
                   which optional libraries were found;
   2. build        the CUDA histogram and flash-attention kernels (nvcc,
                   sm_90a, both started together) from the checkout's
-                  sources, and libscvid where libav is present;
+                  sources, and libscvid where libav is present; with
+                  cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
+                  load) instructions in the flash library's SASS;
   3. kernel       the histogram kernel against its plain PyTorch version,
                   bit for bit, at the main path's shape (16 x 480 x 640
                   x 3), a ragged shape, flat frames, and the int32-id
                   entry;
-  4. attention_kernel  the flash-attention kernel against its plain
-                  version (rtol 2e-4, atol 2e-5 on m, l and acc / l) at
-                  (BH, T, D) = (16, 2048, 128) causal and not, D = 8,
-                  D = 32 causal and not (the train step's call), a ragged
-                  Tq != Tk, nonzero offsets, a fully masked block and a
-                  chained two-block update;
+  4. attention_kernel  the flash-attention kernel (TF32 on the tensor
+                  cores) against its plain version fed the same TF32
+                  operands (m, l: rtol 2e-4, atol 2e-5; acc / l: rtol
+                  2e-4, atol 2 * 2^-11 * max|v|) at (BH, T, D) = (16,
+                  2048, 128) causal and not, D = 8, D = 32 causal and not
+                  (the train step's call), a ragged Tq != Tk, nonzero
+                  offsets, D % 4 != 0, D = 128 with Tq, Tk that no tile
+                  divides, more blocks than one wave, a causal block
+                  wholly before the queries, a fully masked block (the
+                  carry bit for bit) and a chained two-block update;
   5. color        the YUV420 -> RGB conversion on the card against the
                   host numpy flavor, bit for bit;
   6. main path    configs 1 (Histogram) and 2 (Histogram ->
@@ -45,7 +51,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                   the first step's first temporal block gave it;
   9. timings      each kernel at its timing shape with its bound, its
                   plain version and one library call (torch.bincount;
-                  F.scaled_dot_product_attention in f32).
+                  F.scaled_dot_product_attention in f32), by CUDA events
+                  around wrapper calls, and the kernel's device time
+                  alone from torch.profiler; the flash kernel also at the
+                  train step's shape.
 
 The frames are made from --seed (the repo's deterministic test pattern
 plus seeded noise) and stored with Client.new_table as a pickled-frame
@@ -78,13 +87,27 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # integer operations per input byte in the kernel: multiply, shift, add
 HIST_OPS_PER_BYTE = 3
-# the flash kernel's products run as f32 FMAs on the CUDA cores: the
-# H100 SXM's f32 rate outside the tensor cores
-FP32_FLOPS_PER_S = 67e12
+# the flash kernel's products run on the tensor cores in TF32: the H100
+# SXM's dense TF32 rate (NVIDIA data sheet); its exponentials run on the
+# special-function units, about 3.9e12 per second on an H100 SXM5
+# (FlashAttention-3, Shah et al. 2024)
+TF32_FLOPS_PER_S = 495e12
+EXP_PER_S = 3.9e12
+# The kernel multiplies TF32 operands (kernels/attention.py
+# TF32_ROUNDING), so it is held against the plain version fed those same
+# operands (tf32_operand).  The logits then differ only in f32 summation
+# order: m and l keep the f32 tolerance of tests/test_parallel.py.  The
+# kernel also rounds the probabilities p to TF32 for p . V (relative
+# error at most 2^-11 each) and the plain version does not, so acc / l
+# takes atol 2 * 2^-11 * max|v| beside rtol 2e-4.
 FLASH_RTOL, FLASH_ATOL = 2e-4, 2e-5
+TF32_UNIT = 2.0 ** -11
 FLASH_SHAPE = (16, 2048, 128)   # (BH, T, D), tools/tpu_window.py's
 POSE_SIZE, TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS = 48, 64, 2, 5
 TRAIN_TIME = 2048               # frames per train clip: a long clip
+# (B * heads, T, D) of the train step's flash call: width 32 gives 128
+# channels in 4 heads of 32
+TRAIN_FLASH_SHAPE = (TRAIN_BATCH * 4, TRAIN_TIME, 32)
 
 W, H, C, BINS = 640, 480, 3, 16
 WORK, IO = 32, 96
@@ -142,6 +165,64 @@ def cuda_ms(fn, iters: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int, names) -> dict:
+    """Device milliseconds per call of each kernel whose name holds one
+    of `names`, from torch.profiler over `iters` calls of fn() after a
+    warm-up: the sum of its self device time over the calls / iters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        for n in names:
+            if n in e.key:
+                out[n] += e.self_device_time_total / 1e3 / iters
+    check(all(out.values()), f"the profiler trace holds no device time for "
+                             f"{[n for n, v in out.items() if not v]}")
+    return out
+
+
+def sass_counts(lib: str, opcodes):
+    """{opcode: count of instructions} in the SASS of `lib`, by cuobjdump
+    from the PATH or the CUDA home; None where there is no cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()}")
+    lines = r.stdout.splitlines()
+    return {op: sum(op in x for x in lines) for op in opcodes}
+
+
+def flash_bound(BH: int, Tq: int, Tk: int, D: int):
+    """(bound ms, what binds, flops) of one flash update: the bound is
+    the largest of its TF32 flops, its exponentials and its bytes at the
+    card's peaks."""
+    flops = 4.0 * BH * Tq * Tk * D
+    exps = float(BH * Tq * Tk)
+    # q, k, v and the carry (m, l, acc) read once, (m, l, acc) written
+    nbytes = 4.0 * (BH * Tq * D + 2 * BH * Tk * D
+                    + 2 * (BH * Tq * D + 2 * BH * Tq))
+    times = {"operations(TF32 flops at 495 TFLOP/s)":
+             flops / TF32_FLOPS_PER_S * 1e3,
+             "operations(exp at 3.9e12/s)": exps / EXP_PER_S * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    what = max(times, key=times.get)
+    return times[what], what, flops
 
 
 def make_frames(n: int, seed: int):
@@ -206,26 +287,50 @@ def flash_inputs(g, BH, Tq, Tk, D, carry, dev):
     return [t.to(dev) for t in (q, k, v, m, l, acc)]
 
 
-def compare_flash(got, want, what: str, errs: dict) -> None:
-    """Holds the kernel's (m, l, acc) against the plain version's within
-    FLASH_RTOL / FLASH_ATOL on m, l and acc / l, and raises each entry of
-    `errs` to the largest |kernel - plain| seen."""
+def flash_reference(args, q_off, k_off, causal=False):
+    """The plain version on the operands the kernel multiplies: q, k, v
+    turned into TF32 as the kernel turns them (kernels/attention.py
+    TF32_ROUNDING)."""
+    from scanner_tpu_torch.kernels import attention
+    q, k, v = (attention.tf32_operand(t, attention.TF32_ROUNDING[n])
+               for n, t in zip("qkv", args[:3]))
+    return attention.flash_block_update_plain(q, k, v, *args[3:], q_off,
+                                              k_off, causal=causal)
+
+
+def compare_flash(got, args, q_off, k_off, causal, what: str,
+                  errs: dict) -> None:
+    """Holds the kernel's (m, l, acc) on `args` against flash_reference:
+    m and l within FLASH_RTOL / FLASH_ATOL, acc / l within FLASH_RTOL
+    and 2 * TF32_UNIT * max|v|.  Raises each entry of `errs` to the
+    largest |kernel - reference| seen, and "f32_out" to the largest
+    |acc / l| difference from the plain version on the unrounded
+    inputs (information, not a check)."""
     import torch
+    from scanner_tpu_torch.kernels import attention
     torch.cuda.synchronize()
-    m, l, acc = got
-    wm, wl, wacc = want
-    pairs = {"m": (m, wm), "l": (l, wl),
-             "out": (acc / l.clamp_min(1e-30)[..., None],
-                     wacc / wl.clamp_min(1e-30)[..., None])}
-    for name, (a, b) in pairs.items():
+    want = flash_reference(args, q_off, k_off, causal)
+    exact = attention.flash_block_update_plain(*args, q_off, k_off,
+                                               causal=causal)
+    v_max = float(args[2].abs().max()) if args[2].numel() else 0.0
+
+    def out(state):
+        return state[2] / state[1].clamp_min(1e-30)[..., None]
+    pairs = {"m": (got[0], want[0], FLASH_ATOL),
+             "l": (got[1], want[1], FLASH_ATOL),
+             "out": (out(got), out(want), 2 * TF32_UNIT * v_max)}
+    for name, (a, b, atol) in pairs.items():
         check(bool(torch.isfinite(a).all()),
               f"flash kernel: non-finite {name} ({what})")
         err = float((a - b).abs().max()) if a.numel() else 0.0
         errs[name] = max(errs[name], err)
-        check(bool(((a - b).abs()
-                    <= FLASH_ATOL + FLASH_RTOL * b.abs()).all()),
-              f"flash kernel disagrees with its plain version on "
-              f"{name}: {what} (max abs err {err})")
+        check(bool(((a - b).abs() <= atol + FLASH_RTOL * b.abs()).all()),
+              f"flash kernel disagrees with its plain version on TF32 "
+              f"operands on {name}: {what} (max abs err {err}, atol "
+              f"{atol})")
+    if got[1].numel():
+        errs["f32_out"] = max(errs["f32_out"], float(
+            (out(got) - out(exact)).abs().max()))
 
 
 def check_attention_kernel(dev, seed: int, errs: dict) -> int:
@@ -234,9 +339,6 @@ def check_attention_kernel(dev, seed: int, errs: dict) -> int:
     import torch
     from scanner_tpu_torch.kernels import attention
     g = torch.Generator().manual_seed(seed)
-
-    def compare(got, want, what):
-        compare_flash(got, want, what, errs)
 
     BH, T, D = FLASH_SHAPE
     cases = [  # (what, BH, Tq, Tk, D, q_off, k_off, causal, carry)
@@ -249,12 +351,19 @@ def check_attention_kernel(dev, seed: int, errs: dict) -> int:
         ("ragged Tq=193 Tk=77", 3, 193, 77, 40, 0, 0, False, True),
         ("offsets q_off=100 k_off=37", 5, 130, 150, 64, 100, 37, True,
          True),
+        ("D=6, padded to 8", 2, 100, 90, 6, 0, 0, True, True),
+        ("D=128, Tq=300 Tk=250, q_off=37 k_off=11", 3, 300, 250, 128, 37,
+         11, True, True),
+        ("BH=40 T=1024 D=64, 320 blocks", 40, 1024, 1024, 64, 0, 0, False,
+         False),
+        ("causal, K wholly before the queries", 4, 256, 256, 32, 1024, 0,
+         True, True),
     ]
     for what, bh, tq, tk, d, qo, ko, causal, carry in cases:
         args = flash_inputs(g, bh, tq, tk, d, carry, dev)
-        compare(attention.flash_block_update(*args, qo, ko, causal=causal),
-                attention.flash_block_update_plain(*args, qo, ko,
-                                                   causal=causal), what)
+        compare_flash(attention.flash_block_update(*args, qo, ko,
+                                                   causal=causal),
+                      args, qo, ko, causal, what, errs)
     for carry in (False, True):   # a block after every query: no change
         args = flash_inputs(g, 4, 100, 64, 32, carry, dev)
         got = attention.flash_block_update(*args, 0, 500, causal=True)
@@ -263,14 +372,14 @@ def check_attention_kernel(dev, seed: int, errs: dict) -> int:
               f"flash kernel changed the state on a fully masked block "
               f"(carry={carry})")
     q, k, v, m, l, acc = flash_inputs(g, 4, 256, 512, 32, True, dev)
-    got = want = (m, l, acc)
+    state = (m, l, acc)
     for blk, k_off in ((slice(0, 256), 256), (slice(256, 512), 0)):
-        got = attention.flash_block_update(q, k[:, blk], v[:, blk], *got,
-                                           256, k_off, causal=True)
-        want = attention.flash_block_update_plain(
-            q, k[:, blk], v[:, blk], *want, 256, k_off, causal=True)
-    compare(got, want, "chained two-block update")
-    return len(cases) + 3
+        args = [q, k[:, blk], v[:, blk], *state]
+        state = attention.flash_block_update(*args, 256, k_off,
+                                             causal=True)
+        compare_flash(state, args, 256, k_off, True,
+                      f"chained two-block update, k_off={k_off}", errs)
+    return len(cases) + 4
 
 
 def run_pose(client, st, out: str) -> float:
@@ -397,8 +506,10 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
     # from an empty carry, not causal
     q, k, v = seen[0]
     B, T, H, D = q.shape
-    check((B, T, H * D) == (TRAIN_BATCH, TRAIN_TIME, C) and H == heads,
-          f"the ring saw q {tuple(q.shape)}, not (B, T, heads, C / heads)")
+    check((B, T, H * D) == (TRAIN_BATCH, TRAIN_TIME, C) and H == heads
+          and (B * H, T, D) == TRAIN_FLASH_SHAPE,
+          f"the ring saw q {tuple(q.shape)}, not (B, T, heads, C / heads) "
+          f"with (B * heads, T, D) = {TRAIN_FLASH_SHAPE}")
 
     def rows(x, s=1.0):
         return (x.float() * s).permute(0, 2, 1, 3).reshape(B * H, T, D)
@@ -406,10 +517,9 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
             torch.full((B * H, T), NEG_INF, device=dev),
             torch.zeros(B * H, T, device=dev),
             torch.zeros(B * H, T, D, device=dev)]
-    step_errs = {"m": 0.0, "l": 0.0, "out": 0.0}
-    compare_flash(attention.flash_block_update(*args, 0, 0),
-                  attention.flash_block_update_plain(*args, 0, 0),
-                  "the first train step's q, k, v", step_errs)
+    step_errs = {"m": 0.0, "l": 0.0, "out": 0.0, "f32_out": 0.0}
+    compare_flash(attention.flash_block_update(*args, 0, 0), args, 0, 0,
+                  False, "the first train step's q, k, v", step_errs)
     for name, err in step_errs.items():
         errs[name] = max(errs[name], err)
     flash_ms = cuda_ms(lambda: attention.flash_block_update(*args, 0, 0),
@@ -478,11 +588,16 @@ def main() -> int:
         from scanner_tpu_torch.video import lib as vlib
         vlib.get_lib()
         scvid = f"{native.build_seconds.get('libscvid.so', 0.0):.2f}s"
+    sass = sass_counts(os.path.join(native.BUILD_DIR, "libscanner_flash.so"),
+                       ("HGMMA", "UTMALDG"))
     phase("build", histogram_kernel_s=round(
         native.build_seconds.get("libscanner_hist.so", 0.0), 3),
         flash_kernel_s=round(
             native.build_seconds.get("libscanner_flash.so", 0.0), 3),
-        libscvid=repr(scvid))
+        libscvid=repr(scvid), flash_sass=json.dumps(sass))
+    if sass is not None:
+        check(all(sass.values()), f"the flash library's SASS lacks the "
+                                  f"tensor-core or TMA path: {sass}")
 
     # -- kernel check ---------------------------------------------------
     dev = torch.device("cuda")
@@ -516,12 +631,14 @@ def main() -> int:
     phase("kernel", checks=5, max_abs_err=max_err, tolerance=0)
 
     # -- flash-attention kernel check -----------------------------------
-    flash_errs = {"m": 0.0, "l": 0.0, "out": 0.0}
+    flash_errs = {"m": 0.0, "l": 0.0, "out": 0.0, "f32_out": 0.0}
     n_checks = check_attention_kernel(dev, args.seed, flash_errs)
-    phase("attention_kernel", checks=n_checks,
+    phase("attention_kernel", checks=n_checks, reference="plain(TF32 q,k,v)",
           max_abs_err_m=flash_errs["m"], max_abs_err_l=flash_errs["l"],
           max_abs_err_acc_over_l=flash_errs["out"],
-          tolerance=f"rtol={FLASH_RTOL},atol={FLASH_ATOL}",
+          tolerance=f"m,l:rtol={FLASH_RTOL},atol={FLASH_ATOL};"
+                    f"acc/l:rtol={FLASH_RTOL},atol=2*2^-11*max|v|",
+          max_abs_err_acc_over_l_vs_f32_inputs=flash_errs["f32_out"],
           fully_masked_unchanged=True)
 
     # -- color check ----------------------------------------------------
@@ -587,7 +704,7 @@ def main() -> int:
         phase("pose_serve", **pose_serve(st, work, args.seed))
         train = pose_train(dev, args.seed, flash_errs)
         flash_launches = train["flash_launches"]
-        flash_err = max(flash_errs.values())
+        flash_err = max(flash_errs[k] for k in ("m", "l", "out"))
         phase("pose_train", **train)
 
         # -- timings at the main path's shape -------------------------
@@ -605,39 +722,57 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = x.numel() * HIST_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
+        hist_dev_ms = device_ms(lambda: cuda_ops.histogram_frames(x), 50,
+                                ["hist_kernel"])["hist_kernel"]
         phase("timings", shape=f"{b}x{hh}x{ww}x{c}", kernel_ms=ms,
-              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+              kernel_device_ms=hist_dev_ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=bound_ms,
+              device_share_of_bound=bound_ms / hist_dev_ms,
               launches_per_600_frame_run=launches[1], card=repr(card))
 
-        # -- the flash kernel at tools/tpu_window.py's shape, from an
-        # empty carry, where one update divided by l is exactly
-        # scaled_dot_product_attention (q arrives pre-scaled) -----------
-        fb, ft, fd = FLASH_SHAPE
-        fargs = flash_inputs(torch.Generator().manual_seed(args.seed), fb,
-                             ft, ft, fd, False, dev)
-        fq, fk, fv = fargs[:3]
-        f_ms = cuda_ms(lambda: attention.flash_block_update(*fargs, 0, 0),
-                       20)
-        f_plain_ms = cuda_ms(
-            lambda: attention.flash_block_update_plain(*fargs, 0, 0), 5)
-        f_library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                fq, fk, fv, scale=1.0), 20)
-        f_flops = 4.0 * fb * ft * ft * fd
-        # q, k, v and the carry (m, l, acc) read once, (m, l, acc) written
-        f_bytes = 4.0 * (3 * fb * ft * fd + 2 * (fb * ft * fd + 2 * fb * ft))
-        f_t_ops = f_flops / FP32_FLOPS_PER_S * 1e3
-        f_t_bytes = f_bytes / HBM_BYTES_PER_S * 1e3
-        f_bound_ms = max(f_t_ops, f_t_bytes)
-        phase("timings", kernel="flash_block_update",
-              shape=f"{fb}x{ft}x{ft}x{fd}", causal=False, kernel_ms=f_ms,
-              plain_ms=f_plain_ms, library_ms=f_library_ms,
-              library="F.scaled_dot_product_attention(f32)",
-              bound_ms=f_bound_ms,
-              bound_by="operations(f32 67 TFLOP/s)"
-              if f_t_ops >= f_t_bytes else "bytes",
-              achieved_tflops=f_flops / (f_ms * 1e-3) / 1e12,
-              launches_per_train_step=2, card=repr(card))
+        # -- the flash kernel at tools/tpu_window.py's shape and at the
+        # train step's, from an empty carry, where one update divided by
+        # l is exactly scaled_dot_product_attention (q arrives
+        # pre-scaled) ---------------------------------------------------
+        for fshape in (FLASH_SHAPE, TRAIN_FLASH_SHAPE):
+            fb, ft, fd = fshape
+            fargs = flash_inputs(torch.Generator().manual_seed(args.seed),
+                                 fb, ft, ft, fd, False, dev)
+            fq, fk, fv = fargs[:3]
+
+            def kernel_call():
+                attention.flash_block_update(*fargs, 0, 0)
+            f_ms = cuda_ms(kernel_call, 20)
+            f_dev = device_ms(kernel_call, 20, ["flash_tf32_kernel",
+                                                "transpose_v_kernel"])
+            f_plain_ms = cuda_ms(
+                lambda: attention.flash_block_update_plain(*fargs, 0, 0), 5)
+            f_library_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    fq, fk, fv, scale=1.0), 20)
+            f_bound_ms, f_by, f_flops = flash_bound(fb, ft, ft, fd)
+            if fshape == FLASH_SHAPE:   # the kernels line's entry
+                big = dict(ms=f_ms, plain_ms=f_plain_ms,
+                           library_ms=f_library_ms, bound_ms=f_bound_ms,
+                           bound_by=f_by)
+            phase("timings", kernel="flash_block_update",
+                  shape=f"{fb}x{ft}x{ft}x{fd}", causal=False,
+                  kernel_ms=f_ms,
+                  kernel_device_ms=f_dev["flash_tf32_kernel"],
+                  transpose_device_ms=f_dev["transpose_v_kernel"],
+                  plain_ms=f_plain_ms, library_ms=f_library_ms,
+                  library="F.scaled_dot_product_attention(f32)",
+                  bound_ms=f_bound_ms, bound_by=f_by,
+                  device_share_of_bound=f_bound_ms
+                  / f_dev["flash_tf32_kernel"],
+                  wrapper_share_of_bound=f_bound_ms / f_ms,
+                  achieved_tflops=f_flops / (f_ms * 1e-3) / 1e12,
+                  faster_than_library=f_ms < f_library_ms,
+                  launches_per_train_step=2, card=repr(card))
+            check(f_ms < f_library_ms,
+                  f"flash kernel ({f_ms:.4f} ms) is not faster than f32 "
+                  f"scaled_dot_product_attention ({f_library_ms:.4f} ms) "
+                  f"at {fb}x{ft}x{fd}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -661,11 +796,12 @@ def main() -> int:
         "replaces": "scanner_tpu/kernels/pallas_attention.py:50",
         "launches": flash_launches,
         "max_abs_err": flash_err,
-        "ms": f_ms,
-        "plain_ms": f_plain_ms,
-        "bound_ms": f_bound_ms,
-        "bound_by": "operations" if f_t_ops >= f_t_bytes else "bytes",
-        "library_ms": f_library_ms,
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes" if big["bound_by"] == "bytes"
+        else "operations",
+        "library_ms": big["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,8 +17,12 @@ kernels/cuda_ops.py, three parts sit side by side:
   * `flash_launches`, which the wrapper adds one to where it launches
     the kernel and nowhere else.
 
-The kernel is compiled with nvcc for sm_90a into `_build/` at first use
-and called through ctypes on PyTorch's current stream.
+The kernel runs both products on the tensor cores in TF32;
+`tf32_operand` gives the values it multiplies (`TF32_ROUNDING` says how
+each operand gets there), so the plain version fed those operands is
+the tight reference the card's checks hold it against.  The kernel is
+compiled with nvcc for sm_90a into `_build/` at first use and called
+through ctypes on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -34,6 +38,13 @@ from .cuda_ops import build_kernel_library
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # csrc/flash_attention.cu kMaxD
+
+# how the kernel turns each f32 input into the TF32 value the tensor
+# cores multiply (csrc/flash_attention.cu, "Precision"): q and v are
+# rounded to nearest, ties away from zero (cvt.rna), as are the
+# probabilities p it computes itself; k is truncated (the tensor core
+# drops its low 13 bits as it reads it)
+TF32_ROUNDING = {"q": "rna", "k": "trunc", "v": "rna"}
 
 # launches of the flash kernel (csrc/flash_attention.cu) in this process
 flash_launches = 0
@@ -58,7 +69,7 @@ def load_library():
                                                    _SRC))
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.flash_block_update_f32.argtypes = (
-                [vp] * 9 + [ll, ll, ll, ci, ll, ll, ci, vp])
+                [vp] * 10 + [ll, ll, ll, ci, ci, ll, ll, ci, vp])
             lib.flash_block_update_f32.restype = ci
             _lib = lib
     return _lib
@@ -72,6 +83,28 @@ def _block_size(tl: int, want: int) -> int:
     while tl % b:
         b -= 1
     return b
+
+
+def tf32_operand(x: torch.Tensor, rounding: str = "rna") -> torch.Tensor:
+    """The TF32 value the tensor cores see for each f32 element of x,
+    as an f32 tensor with the low 13 mantissa bits zero.
+
+    rounding="rna": round to nearest, ties away from zero, as PTX's
+    cvt.rna.tf32.f32 does (the kernel's q, v and p); "trunc": drop the
+    low 13 bits (the kernel's k).  inf stays inf, NaN stays NaN; a
+    finite value that rounds past the largest TF32 becomes inf, as
+    cvt.rna does."""
+    if rounding not in ("rna", "trunc"):
+        raise ValueError(f"rounding must be 'rna' or 'trunc', got "
+                         f"{rounding!r}")
+    x = x.float()
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if rounding == "rna":
+        bits = bits + 0x1000
+    bits = bits & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    out = bits.to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
 
 
 def _check(q, k, v, m, l, acc) -> None:
@@ -139,11 +172,18 @@ def flash_block_update(q, k, v, m, l, acc, q_off, k_off, *,
     m, l: (BH, Tq) running max / normaliser;  acc: (BH, Tq, D).
     q_off, k_off: global positions of q[., 0] / k[., 0] (causal mask).
     `block_q`/`block_k` are validated as the TPU kernel's tiles are; the
-    CUDA kernel uses its own 64 x 64 tiles and masks ragged edges.
-    Returns new (m, l, acc) in float32.
+    CUDA kernel walks its own tiles (128 queries by 64 keys) and masks
+    ragged edges.  Returns new (m, l, acc) in float32.
 
     CUDA tensors: the hand-written kernel (csrc/flash_attention.cu),
-    D <= 128.  CPU tensors: the plain version."""
+    D <= 128; its products run in TF32 on the tensor cores
+    (`TF32_ROUNDING`), with f32 accumulation and an f32 softmax.  Its
+    tensor maps need rows of a multiple of 16 bytes, so where D % 4 != 0
+    q, k and v are copied into buffers with zero columns up to the next
+    multiple of 4 (they change neither q . k nor the kept columns of
+    acc, which the kernel reads and writes at width D).  Each call also
+    writes V^T into a scratch buffer of (BH, D, Tk) f32.  CPU tensors:
+    the plain version."""
     _check(q, k, v, m, l, acc)
     q_off, k_off = int(q_off), int(k_off)
     dev = q.device
@@ -160,8 +200,11 @@ def flash_block_update(q, k, v, m, l, acc, q_off, k_off, *,
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash kernel takes head dim <= {MAX_HEAD_DIM}, "
                          f"got {D}")
-    q, k, v, m, l, acc = (t.float().contiguous()
-                          for t in (q, k, v, m, l, acc))
+    Dp = -(-D // 4) * 4
+    q, k, v = (_tma_operand(t, Dp) for t in (q, k, v))
+    m, l, acc = (t.float().contiguous() for t in (m, l, acc))
+    vt = torch.empty((BH, Dp, -(-Tk // 8) * 8), dtype=torch.float32,
+                     device=dev)
     m_o = torch.empty_like(m)
     l_o = torch.empty_like(l)
     acc_o = torch.empty_like(acc)
@@ -169,12 +212,27 @@ def flash_block_update(q, k, v, m, l, acc, q_off, k_off, *,
     global flash_launches
     with torch.cuda.device(dev):
         err = lib.flash_block_update_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), m_o.data_ptr(), l_o.data_ptr(),
-            acc_o.data_ptr(), BH, Tq, Tk, D, q_off, k_off, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), vt.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_o.data_ptr(),
+            l_o.data_ptr(), acc_o.data_ptr(), BH, Tq, Tk, D, Dp, q_off,
+            k_off, int(causal), torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash kernel: encoding a TMA tensor map "
+                           f"failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
     with _count_lock:
         flash_launches += 1
     return m_o, l_o, acc_o
+
+
+def _tma_operand(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """t as the kernel's TMA loads want it: contiguous f32 (BH, T, Dp)
+    from a 16-byte aligned address, zero columns past t's own D."""
+    t = t.float()
+    if t.shape[-1] != Dp:
+        return torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t

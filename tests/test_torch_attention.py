@@ -7,6 +7,10 @@ JAX package on the CPU, on the same numpy inputs.
     fully masked block, a chained two-block update, ragged T.
     Tolerance rtol 2e-4, atol 2e-5 (tests/test_parallel.py's): both are
     f32 with the same K tiles, and differ only in summation order;
+  * `tf32_operand`, which gives the TF32 values the card's kernel
+    multiplies: bit patterns (half-way cases, signs, zeros, infinities,
+    the NEG_INF sentinel), bf16 values unchanged, and the plain version
+    on TF32 operands within a stated bound of the plain version;
   * the port's ring (impl "xla" and "cuda") on one rank against the JAX
     ring on a one-device mesh and against `reference_attention`;
   * gradients of the "cuda" ring against jax.grad of the JAX Pallas
@@ -144,6 +148,95 @@ def test_flash_wrapper_validates_and_refuses_other_devices():
     before = ta.flash_launches
     ta.flash_block_update(*args, 0, 0)
     assert ta.flash_launches == before   # the plain version is no launch
+
+
+# -- tf32_operand: the TF32 values the card's kernel multiplies ------------
+
+def _bits(x):
+    return x.view(torch.int32).numpy().astype(np.uint32)
+
+
+def _from_bits(b):
+    return torch.from_numpy(np.asarray(b, np.uint32).view(np.float32))
+
+
+@pytest.mark.parametrize("rounding", ["rna", "trunc"])
+def test_tf32_operand_keeps_bf16_values(rounding):
+    """bf16 values (7 mantissa bits) are TF32 values (10 bits): both
+    roundings leave them as they are."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096)
+                         .astype(np.float32)).to(torch.bfloat16).float()
+    x = torch.cat([x, torch.tensor([0.0, -0.0, 1.0, -2.5, NEG_INF,
+                                    float("inf"), float("-inf")])
+                   .to(torch.bfloat16).float()])
+    got = ta.tf32_operand(x, rounding)
+    assert torch.equal(got.view(torch.int32), x.view(torch.int32))
+
+
+# (bits in, rna bits out, trunc bits out): the low 13 bits are dropped;
+# rna rounds half-way (0x1000) away from zero
+TF32_BITS = [
+    (0x3F800000, 0x3F800000, 0x3F800000),   # 1.0
+    (0x3F800FFF, 0x3F800000, 0x3F800000),   # just below half-way
+    (0x3F801000, 0x3F802000, 0x3F800000),   # half-way: away from zero
+    (0x3F803000, 0x3F804000, 0x3F802000),   # half-way, odd TF32 lsb
+    (0x3F801001, 0x3F802000, 0x3F800000),   # above half-way
+    (0xBF801000, 0xBF802000, 0xBF800000),   # negative half-way
+    (0xBF800FFF, 0xBF800000, 0xBF800000),
+    (0x00000000, 0x00000000, 0x00000000),   # +0
+    (0x80000000, 0x80000000, 0x80000000),   # -0
+    (0x7F800000, 0x7F800000, 0x7F800000),   # +inf
+    (0xFF800000, 0xFF800000, 0xFF800000),   # -inf
+    (0xF149F2CA, 0xF14A0000, 0xF149E000),   # NEG_INF = -1e30
+    (0x7F7FFFFF, 0x7F800000, 0x7F7FE000),   # largest f32 rounds to inf
+    (0x00001000, 0x00002000, 0x00000000),   # subnormal half-way
+    (0x3FFFF000, 0x40000000, 0x3FFFE000),   # carry into the exponent
+]
+
+
+@pytest.mark.parametrize("bits_in,rna,trunc", TF32_BITS,
+                         ids=[f"{b[0]:08x}" for b in TF32_BITS])
+def test_tf32_operand_bit_patterns(bits_in, rna, trunc):
+    x = _from_bits([bits_in])
+    assert _bits(ta.tf32_operand(x, "rna"))[0] == rna
+    assert _bits(ta.tf32_operand(x, "trunc"))[0] == trunc
+
+
+def test_tf32_operand_nan_and_bad_mode():
+    x = torch.tensor([float("nan"), 1.0])
+    for rounding in ("rna", "trunc"):
+        assert torch.isnan(ta.tf32_operand(x, rounding)[0])
+    with pytest.raises(ValueError, match="rounding"):
+        ta.tf32_operand(x, "rn")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_on_tf32_operands_within_bound(causal):
+    """The plain version fed the kernel's TF32 operands (q, v rounded,
+    k truncated) against the plain version on the originals, from an
+    empty carry.  Per row, with d = 3 * 2^-11 * max_j sum_i |q_i k_ji|
+    (q's relative error 2^-11 plus k's 2^-10 bounds every logit's change
+    by d): |dm| <= d, |dl| / l <= e^(2d) - 1, and |d(acc / l)| <=
+    (e^(2d) - 1 + 2^-11) * max|v|; plus 1e-6 for f32 arithmetic."""
+    q, k, v, m, l, acc = (torch.from_numpy(a) for a in
+                          _inputs(11, 3, 40, 56, 24))
+    rounded = [ta.tf32_operand(t, ta.TF32_ROUNDING[n])
+               for n, t in zip("qkv", (q, k, v))]
+    assert not any(torch.equal(a, b) for a, b in zip(rounded, (q, k, v)))
+    got = ta.flash_block_update_plain(*rounded, m, l, acc, 0, 0,
+                                      causal=causal, block_k=8)
+    want = ta.flash_block_update_plain(q, k, v, m, l, acc, 0, 0,
+                                       causal=causal, block_k=8)
+    d = 3 * 2.0 ** -11 * torch.bmm(q.abs(), k.abs().transpose(1, 2)) \
+        .amax(dim=2)
+    grow = torch.expm1(2 * d)
+    out = [s[2] / s[1][..., None] for s in (got, want)]
+    v_max = float(v.abs().max())
+    assert ((got[0] - want[0]).abs() <= d + 1e-6).all()
+    assert ((got[1] - want[1]).abs() <= grow * want[1] + 1e-6).all()
+    assert ((out[0] - out[1]).abs()
+            <= ((grow + 2.0 ** -11) * v_max + 1e-6)[..., None]).all()
+    assert float((out[0] - out[1]).abs().max()) > 0
 
 
 def _qkv(seed, B, T, H, D):
