@@ -12,11 +12,18 @@ Phases, each printed on its own line; any failure exits non-zero:
                   sm_90a, both started together) from the checkout's
                   sources, and libscvid where libav is present; with
                   cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
-                  load) instructions in the flash library's SASS;
+                  load) instructions in the flash library's SASS and the
+                  instructions per input byte of the histogram's hot
+                  loop; the card's SM count, how many clusters of each
+                  size the histogram kernel fits at once, and the blocks
+                  per frame it takes at the batch sizes checked;
   3. kernel       the histogram kernel against its plain PyTorch version,
-                  bit for bit, at the main path's shape (16 x 480 x 640
-                  x 3), a ragged shape, flat frames, and the int32-id
-                  entry;
+                  bit for bit: 480 x 640 x 3 batches of 1, 8, 16, 32 and
+                  33 frames, C = 1..4 with 1, 16, 17 and 128 bins, an
+                  unaligned view, views at byte offsets 0..15 of one
+                  buffer, channels flat at 0, 255 and 128, a flat
+                  1920 x 1080 frame, and the int32-id entry with padding
+                  ids;
   4. attention_kernel  the flash-attention kernel (TF32 on the tensor
                   cores) against its plain version fed the same TF32
                   operands (m, l: rtol 2e-4, atol 2e-5; acc / l: rtol
@@ -54,7 +61,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                   F.scaled_dot_product_attention in f32), by CUDA events
                   around wrapper calls, and the kernel's device time
                   alone from torch.profiler; the flash kernel also at the
-                  train step's shape.
+                  train step's shape.  The histogram is also timed cold
+                  (calls cycle over 8 distinct batches, past the L2), on
+                  flat frames, at B = 8 and 32, and with every kernel a
+                  wrapper call runs (it must be one).
 
 The frames are made from --seed (the repo's deterministic test pattern
 plus seeded noise) and stored with Client.new_table as a pickled-frame
@@ -70,6 +80,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -81,12 +92,18 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound: HBM3 bytes
-# per second, and the int32 ALU rate, taken as half the 67 TFLOP/s fp32
-# rate (Hopper issues int32 on half as many lanes as fp32)
+# per second, and the INT32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (each SM issues 4 x 32 lanes a cycle, half of them INT32; the data
+# sheet's 67 TFLOP/s fp32 counts an FMA as two operations).  The
+# histogram's bytes bind it: 4.4 us against 2.6 us of INT32 work at the
+# main path's shape.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 16.7e12
 # integer operations per input byte in the kernel: multiply, shift, add
 HIST_OPS_PER_BYTE = 3
+# distinct batches a cold timing cycles over: 8 x 14.7 MB at the main
+# path's shape, past the H100's 50 MB L2
+COLD_BATCHES = 8
 # the flash kernel's products run on the tensor cores in TF32: the H100
 # SXM's dense TF32 rate (NVIDIA data sheet); its exponentials run on the
 # special-function units, about 3.9e12 per second on an H100 SXM5
@@ -170,27 +187,119 @@ def cuda_ms(fn, iters: int) -> float:
 def device_ms(fn, iters: int, names) -> dict:
     """Device milliseconds per call of each kernel whose name holds one
     of `names`, from torch.profiler over `iters` calls of fn() after a
-    warm-up: the sum of its self device time over the calls / iters."""
+    warm-up: the sum of its self device time over the calls / iters.
+    Also "all kernels", every kernel, fill or copy the calls ran on the
+    card, "kernels per call", how many of those one call ran, and
+    "others", the names of those that match none of `names`.  A trace
+    that holds no device time for one of `names` is taken again, twice
+    at most: now and then a trace comes back with no device records at
+    all (seen on an H100)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {n: 0.0 for n in names}
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        for n in names:
-            if n in e.key:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {n: 0.0 for n in names}
+        total = count = 0.0
+        others = []
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            total += e.self_device_time_total / 1e3 / iters
+            count += e.count / iters
+            hit = [n for n in names if n in e.key]
+            for n in hit:
                 out[n] += e.self_device_time_total / 1e3 / iters
+            if not hit:
+                others.append(e.key)
+        if all(out.values()):
+            break
     check(all(out.values()), f"the profiler trace holds no device time for "
                              f"{[n for n, v in out.items() if not v]}")
+    out["all kernels"], out["kernels per call"] = total, count
+    out["others"] = others
     return out
+
+
+def frame_batches(n: int, shape, seed: int, dev, flat: bool = False):
+    """`n` distinct uint8 batches of `shape` made on the card from
+    `seed`: uniform random bytes, or each batch one flat value."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if flat:
+        vals = torch.randint(0, 256, (n,), generator=g, device=dev)
+        return [torch.full(shape, int(v), dtype=torch.uint8, device=dev)
+                for v in vals]
+    return [torch.randint(0, 256, shape, generator=g, device=dev,
+                          dtype=torch.uint8) for _ in range(n)]
+
+
+def cycling(fn, batches):
+    """A call of fn on the next of `batches` in turn: each batch comes
+    back only after the others have passed through the L2."""
+    it = itertools.cycle(batches)
+    return lambda: fn(next(it))
+
+
+def hot_loop(lib: str, function: str):
+    """(instructions, 16-byte global loads, instructions per input byte)
+    of the innermost loop of `function` in the SASS of `lib` that holds
+    16-byte global loads (LDG...128): each load brings 16 input bytes.
+    None where there is no cuobjdump or no such loop."""
+    import re
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()}")
+    body = None
+    for part in r.stdout.split("Function : ")[1:]:
+        if function in part.splitlines()[0]:
+            body = part
+    if body is None:
+        return None
+    insts, labels, pending = [], {}, []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+        insts.append((addr, text.split()[0], text))
+    best = None
+    for addr, op, text in insts:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
+                                                               16)
+        if target is None or target > addr:
+            continue
+        loop = [o for a, o, _ in insts if target <= a <= addr]
+        loads = sum(o.startswith("LDG") and ".128" in o for o in loop)
+        if loads and (best is None or len(loop) < best[0]):
+            best = (len(loop), loads)
+    if best is None:
+        return None
+    return best[0], best[1], best[0] / (16 * best[1])
 
 
 def sass_counts(lib: str, opcodes):
@@ -537,6 +646,69 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
                 flash_share_of_step=2 * flash_ms / (step_s * 1e3))
 
 
+# the main path's instance of the histogram kernel (C = 3, 16 bins)
+HIST_MAIN_FUNCTION = "hist_u8_privateILi3EE"
+
+
+def hist_cases(g):
+    """(what, uint8 frames, bins) that [kernel] holds the histogram
+    kernel to its plain version on: the main path's shape, the batch
+    sizes the engine and the shot path call with and a ragged one, every
+    channel count with bins that take each kernel, flat channels, and a
+    flat 1920 x 1080 frame (counts past 2^16 in one bin)."""
+    import torch
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    cases = [(f"random B={b}", rand((b, H, W, C)), BINS)
+             for b in (1, 8, 16, 32, 33)]
+    for c in (1, 2, 3, 4):
+        for bins in (1, 16, 17, 128):
+            cases.append((f"C={c} bins={bins}", rand((3, 37, 53, c)), bins))
+    cases.append(("unaligned view of 97x131x3", rand((3, 97, 131, 3))[1:],
+                  BINS))
+    flat = torch.empty((4, H, W, C), dtype=torch.uint8)
+    for c, v in enumerate((0, 255, 128)):
+        flat[..., c] = v
+    cases.append(("channels flat at 0, 255, 128", flat, BINS))
+    cases.append(("channels flat, bins=17", flat, 17))
+    cases.append(("flat 1920x1080x3",
+                  torch.full((1, 1080, 1920, 3), 77, dtype=torch.uint8),
+                  BINS))
+    return cases
+
+
+def hist_timings(dev, seed: int) -> dict:
+    """The histogram kernel's device time alone (torch.profiler) where
+    the main path finds its frames, cold: calls cycle over COLD_BATCHES
+    distinct batches, so each reads its frames from device memory and not
+    from the L2.  At 16 x 480 x 640 x 3: random bytes, flat frames, and
+    every kernel one wrapper call runs; at B = 8 and B = 32 random."""
+    from scanner_tpu_torch.kernels import cuda_ops
+    out = {}
+    for key, b, flat in (("kernel_device_ms_cold", 16, False),
+                         ("kernel_device_ms_flat", 16, True),
+                         ("kernel_device_ms_cold_b8", 8, False),
+                         ("kernel_device_ms_cold_b32", 32, False)):
+        batches = frame_batches(COLD_BATCHES, (b, H, W, C), seed, dev, flat)
+        prof = device_ms(cycling(cuda_ops.histogram_frames, batches),
+                         6 * COLD_BATCHES, ["hist"])
+        out[key] = prof["hist"]
+        # the wrapper runs the kernel and nothing else on the card: no
+        # fill, no second pass.  The count may read under 1 (the profiler
+        # can drop a record), never over.
+        check(not prof["others"] and prof["kernels per call"] <= 1,
+              f"a histogram wrapper call ran {prof['kernels per call']} "
+              f"kernels on the card, not 1: {prof['others']}")
+        if key == "kernel_device_ms_cold":
+            out["device_ms_per_call_all_kernels"] = prof["all kernels"]
+            out["kernels_per_call"] = prof["kernels per call"]
+        del batches
+    out["flat_over_random"] = (out["kernel_device_ms_flat"]
+                               / out["kernel_device_ms_cold"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=600)
@@ -590,11 +762,21 @@ def main() -> int:
         scvid = f"{native.build_seconds.get('libscvid.so', 0.0):.2f}s"
     sass = sass_counts(os.path.join(native.BUILD_DIR, "libscanner_flash.so"),
                        ("HGMMA", "UTMALDG"))
+    loop = hot_loop(os.path.join(native.BUILD_DIR, "libscanner_hist.so"),
+                    HIST_MAIN_FUNCTION)
+    caps = cuda_ops.cluster_caps(torch.cuda.current_device())
     phase("build", histogram_kernel_s=round(
         native.build_seconds.get("libscanner_hist.so", 0.0), 3),
         flash_kernel_s=round(
             native.build_seconds.get("libscanner_flash.so", 0.0), 3),
-        libscvid=repr(scvid), flash_sass=json.dumps(sass))
+        libscvid=repr(scvid), flash_sass=json.dumps(sass),
+        hist_hot_loop=json.dumps(loop and dict(
+            instructions=loop[0], loads_16B=loop[1],
+            instructions_per_byte=round(loop[2], 3))),
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        hist_cluster_caps=json.dumps(caps),
+        hist_blocks_per_frame=json.dumps({b: cuda_ops.blocks_per_row(
+            b, H * W * C, caps) for b in (1, 8, 16, 32, 33)}))
     if sass is not None:
         check(all(sass.values()), f"the flash library's SASS lacks the "
                                   f"tensor-core or TMA path: {sass}")
@@ -614,21 +796,30 @@ def main() -> int:
         check(err == 0 and torch.equal(got.cpu(), want),
               f"histogram kernel disagrees with its plain version: {what}")
 
-    for shape in [(16, H, W, C), (3, 97, 131, 3)]:
-        f = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
-        compare(cuda_ops.histogram_frames(f.to(dev)),
-                cuda_ops.histogram_frames_plain(f), f"frames {shape}")
-        compare(cuda_ops.histogram_frames(f.to(dev)[1:]),
-                cuda_ops.histogram_frames_plain(f[1:]),
-                f"unaligned view {shape}")
-    flat = torch.full((16, H, W, C), 200, dtype=torch.uint8)
-    compare(cuda_ops.histogram_frames(flat.to(dev)),
-            cuda_ops.histogram_frames_plain(flat), "flat frames")
-    ids = torch.randint(-2, BINS + 3, (48, 30001), generator=g,
-                        dtype=torch.int32)
-    compare(cuda_ops.histogram_ids(ids.to(dev), BINS),
-            cuda_ops.histogram_ids_plain(ids, BINS), "int32 ids + padding")
-    phase("kernel", checks=5, max_abs_err=max_err, tolerance=0)
+    n_checks = 0
+    for what, f, bins in hist_cases(g):
+        compare(cuda_ops.histogram_frames(f.to(dev), bins),
+                cuda_ops.histogram_frames_plain(f, bins), what)
+        n_checks += 1
+    # views into one flat buffer at byte offsets 0..15
+    shape = (3, 61, 47, 3)
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    buf = torch.randint(0, 256, (n + 16,), generator=g, dtype=torch.uint8)
+    buf_dev = buf.to(dev)
+    for off in range(16):
+        compare(cuda_ops.histogram_frames(
+                    buf_dev[off:off + n].view(shape)),
+                cuda_ops.histogram_frames_plain(buf[off:off + n].view(shape)),
+                f"view at byte offset {off} of {shape}")
+        n_checks += 1
+    for rows, pix, bins in [(48, 30001, BINS), (5, 1000, 128), (3, 7, 1)]:
+        ids = torch.randint(-2, bins + 3, (rows, pix), generator=g,
+                            dtype=torch.int32)
+        compare(cuda_ops.histogram_ids(ids.to(dev), bins),
+                cuda_ops.histogram_ids_plain(ids, bins),
+                f"int32 ids + padding {rows}x{pix}, bins={bins}")
+        n_checks += 1
+    phase("kernel", checks=n_checks, max_abs_err=max_err, tolerance=0)
 
     # -- flash-attention kernel check -----------------------------------
     flash_errs = {"m": 0.0, "l": 0.0, "out": 0.0, "f32_out": 0.0}
@@ -710,6 +901,7 @@ def main() -> int:
         # -- timings at the main path's shape -------------------------
         x = torch.from_numpy(frames[:16]).to(dev)
         b, hh, ww, c = x.shape
+        hist = hist_timings(dev, args.seed)
         ms = cuda_ms(lambda: cuda_ops.histogram_frames(x), 200)
         plain_ms = cuda_ms(lambda: cuda_ops.histogram_frames_plain(x), 50)
         off = (((x.to(torch.int64) * BINS) >> 8)
@@ -723,11 +915,11 @@ def main() -> int:
         t_ops = x.numel() * HIST_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         hist_dev_ms = device_ms(lambda: cuda_ops.histogram_frames(x), 50,
-                                ["hist_kernel"])["hist_kernel"]
+                                ["hist"])["hist"]
         phase("timings", shape=f"{b}x{hh}x{ww}x{c}", kernel_ms=ms,
-              kernel_device_ms=hist_dev_ms, plain_ms=plain_ms,
+              kernel_device_ms=hist_dev_ms, **hist, plain_ms=plain_ms,
               library_ms=library_ms, bound_ms=bound_ms,
-              device_share_of_bound=bound_ms / hist_dev_ms,
+              device_share_of_bound=bound_ms / hist["kernel_device_ms_cold"],
               launches_per_600_frame_run=launches[1], card=repr(card))
 
         # -- the flash kernel at tools/tpu_window.py's shape and at the

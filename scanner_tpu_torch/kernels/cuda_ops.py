@@ -22,6 +22,7 @@ PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import threading
@@ -32,6 +33,8 @@ from .. import native
 
 MAX_BINS = 128
 MAX_CHANNELS = 4  # csrc/histogram.cu kMaxChannels
+# the least of a row a block takes
+MIN_BLOCK_BYTES = 16384
 
 # launches of the histogram kernel (csrc/histogram.cu) in this process
 histogram_launches = 0
@@ -40,6 +43,11 @@ _SRC = os.path.join(native.PKG_DIR, "csrc", "histogram.cu")
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+# the most blocks (one thread-block cluster) that share a row
+MAX_CLUSTER = 16  # csrc/histogram.cu kMaxCluster
+# per card index: caps[k - 1], how many clusters of k blocks the card
+# holds at once (csrc/histogram.cu hist_cluster_caps)
+_cards = {}
 
 
 def reset_counts() -> None:
@@ -66,20 +74,58 @@ def build_kernel_library(name: str, src: str) -> str:
          "-o", "{out}", src])
 
 
+def bind_library(path: str):
+    """Load a histogram library and declare its C entries' types."""
+    lib = ctypes.CDLL(path)
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.hist_u8_frames.argtypes = [vp, vp, ll, ll, ci, ci, ci, vp]
+    lib.hist_u8_frames.restype = ci
+    lib.hist_i32_ids.argtypes = [vp, vp, ll, ll, ci, ci, vp]
+    lib.hist_i32_ids.restype = ci
+    lib.hist_cluster_caps.argtypes = [vp, ci]
+    lib.hist_cluster_caps.restype = ci
+    return lib
+
+
 def load_library():
     """Build (first use only) and load the histogram kernel library."""
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel_library("libscanner_hist.so",
-                                                   _SRC))
-            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.hist_u8_frames.argtypes = [vp, vp, ll, ll, ci, ci, vp]
-            lib.hist_u8_frames.restype = ci
-            lib.hist_i32_ids.argtypes = [vp, vp, ll, ll, ci, vp]
-            lib.hist_i32_ids.restype = ci
-            _lib = lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                _lib = bind_library(build_kernel_library(
+                    "libscanner_hist.so", _SRC))
     return _lib
+
+
+def cluster_caps(index: int, lib=None) -> tuple:
+    """caps[k - 1]: how many clusters of k blocks of the kernel card
+    `index` holds at once, k = 1..MAX_CLUSTER; asked once per card."""
+    caps = _cards.get(index)
+    if caps is None:
+        lib = lib or load_library()
+        buf = (ctypes.c_int * MAX_CLUSTER)()
+        with torch.cuda.device(index):
+            err = lib.hist_cluster_caps(buf, MAX_CLUSTER)
+        if err:
+            raise RuntimeError(f"histogram kernel setup failed: CUDA error "
+                               f"{err}")
+        caps = _cards[index] = tuple(buf)
+    return caps
+
+
+@functools.lru_cache(maxsize=256)
+def blocks_per_row(rows: int, row_bytes: int, caps: tuple) -> int:
+    """How many blocks (one thread-block cluster) share each row: the
+    most for which the card holds all `rows` clusters at once
+    (caps[k - 1] >= rows: one wave, no SM with two blocks' work), with
+    at least MIN_BLOCK_BYTES of the row each; 1 where the rows outnumber
+    what the card holds."""
+    best = 1
+    for k in range(2, len(caps) + 1):
+        if caps[k - 1] >= rows and row_bytes // k >= MIN_BLOCK_BYTES:
+            best = k
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -125,21 +171,35 @@ def _check_bins(bins: int) -> None:
         raise ValueError(f"bins must be in [1, {MAX_BINS}], got {bins}")
 
 
-def _launch_checked(fn, *args) -> None:
+def _launch(fn, t: torch.Tensor, rows: int, n: int, shape, *args):
+    """Launches `fn` over `rows` rows of `n` elements of `t` on the
+    current stream of t's card; returns the output of `shape`, which the
+    kernel writes whole.  Raises on a CUDA error."""
     global histogram_launches
-    err = fn(*args)
+    index = t.device.index
+    k = blocks_per_row(rows, n * t.element_size(), cluster_caps(index))
+    out = torch.empty(shape, dtype=torch.int32, device=t.device)
+    call = (t.data_ptr(), out.data_ptr(), rows, n, *args, k,
+            torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = fn(*call)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*call)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         histogram_launches += 1
+    return out
 
 
 def histogram_frames(frames: torch.Tensor, bins: int = 16) -> torch.Tensor:
     """(B, H, W, C) uint8 -> (B, C, bins) int32 counts.
 
     CUDA tensor: the hand-written kernel (csrc/histogram.cu,
-    hist_u8_frames).  CPU tensor: the plain version."""
+    hist_u8_frames), one launch that writes the whole output.  CPU
+    tensor: the plain version."""
     _check_bins(bins)
     if frames.dim() != 4:
         raise ValueError(f"histogram_frames wants (B, H, W, C) frames, got "
@@ -156,14 +216,11 @@ def histogram_frames(frames: torch.Tensor, bins: int = 16) -> torch.Tensor:
                          f"channels (HWC layout), got C={c}")
     if not frames.is_contiguous():
         raise ValueError("histogram kernel wants a contiguous HWC tensor")
-    lib = load_library()
-    out = torch.zeros((b, c, bins), dtype=torch.int32, device=frames.device)
-    if b and h * w:
-        with torch.cuda.device(frames.device):
-            _launch_checked(lib.hist_u8_frames, frames.data_ptr(),
-                            out.data_ptr(), b, h * w * c, c, bins,
-                            torch.cuda.current_stream().cuda_stream)
-    return out
+    if not b:
+        return torch.empty((0, c, bins), dtype=torch.int32,
+                           device=frames.device)
+    return _launch((_lib or load_library()).hist_u8_frames, frames, b,
+                   h * w * c, (b, c, bins), c, bins)
 
 
 def histogram_ids(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
@@ -171,7 +228,8 @@ def histogram_ids(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
     [0, bins) count nowhere.
 
     CUDA tensor: the hand-written kernel (csrc/histogram.cu,
-    hist_i32_ids).  CPU tensor: the plain version."""
+    hist_i32_ids), one launch that writes the whole output.  CPU tensor:
+    the plain version."""
     _check_bins(bins)
     if vals.dim() != 2:
         raise ValueError(f"histogram_ids wants (R, P) ids, got shape "
@@ -184,12 +242,8 @@ def histogram_ids(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
         raise ValueError(f"no histogram kernel for device {vals.device}")
     if not vals.is_contiguous():
         raise ValueError("histogram kernel wants a contiguous tensor")
-    lib = load_library()
     R, P = vals.shape
-    out = torch.zeros((R, bins), dtype=torch.int32, device=vals.device)
-    if R and P:
-        with torch.cuda.device(vals.device):
-            _launch_checked(lib.hist_i32_ids, vals.data_ptr(),
-                            out.data_ptr(), R, P, bins,
-                            torch.cuda.current_stream().cuda_stream)
-    return out
+    if not R:
+        return torch.empty((0, bins), dtype=torch.int32, device=vals.device)
+    return _launch((_lib or load_library()).hist_i32_ids, vals, R, P,
+                   (R, bins), bins)

@@ -48,8 +48,70 @@ def test_flat_frames_kernel_bit_exact(card):
     assert torch.equal(got.cpu(), cuda_ops.histogram_frames_plain(f))
 
 
+def _frames_exact(card, f, bins=16):
+    """The kernel on `f` (moved to the card unless it is there) against
+    the plain version, bit for bit, and one launch."""
+    before = cuda_ops.histogram_launches
+    got = cuda_ops.histogram_frames(f if f.is_cuda else f.to(card), bins)
+    torch.cuda.synchronize()
+    assert cuda_ops.histogram_launches == before + 1
+    assert torch.equal(got.cpu(), cuda_ops.histogram_frames_plain(f.cpu(),
+                                                                  bins))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16, 32, 33])
+def test_frames_kernel_batch_sizes(card, batch):
+    """The engine's 16-frame calls and 8-frame tail, the shot path's 32, a
+    lone frame and a ragged 33: each picks another number of blocks per
+    frame (one cluster each)."""
+    g = torch.Generator().manual_seed(batch)
+    _frames_exact(card, torch.randint(0, 256, (batch, 480, 640, 3),
+                                      generator=g, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("bins", [1, 16, 17, 128])
+def test_frames_kernel_channels_bins(card, channels, bins):
+    """16 bins at C = 1, 3 and 4 take the private-counter kernel with the
+    channel count fixed at compile time; other bins and C = 2 the general
+    one."""
+    g = torch.Generator().manual_seed(channels * 1000 + bins)
+    _frames_exact(card, torch.randint(0, 256, (3, 37, 53, channels),
+                                      generator=g, dtype=torch.uint8), bins)
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_frames_kernel_views_at_every_byte_offset(card, offset):
+    """Views into one buffer that start 0..15 bytes past a 16-byte
+    boundary: every head length and channel phase."""
+    shape = (3, 61, 47, 3)
+    n = 3 * 61 * 47 * 3
+    g = torch.Generator().manual_seed(offset)
+    buf = torch.randint(0, 256, (n + 16,), generator=g,
+                        dtype=torch.uint8).to(card)
+    _frames_exact(card, buf[offset:offset + n].view(shape))
+
+
+@pytest.mark.parametrize("bins", [16, 17])
+def test_frames_kernel_flat_channels(card, bins):
+    """Channels flat at 0, 255 and 128: every lane on one bin."""
+    f = torch.empty((4, 480, 640, 3), dtype=torch.uint8)
+    for c, v in enumerate((0, 255, 128)):
+        f[..., c] = v
+    _frames_exact(card, f, bins)
+
+
+def test_frames_kernel_flat_full_hd(card):
+    """A flat 1920 x 1080 frame puts 2,073,600 counts in one bin."""
+    f = torch.full((1, 1080, 1920, 3), 77, dtype=torch.uint8)
+    _frames_exact(card, f)
+    assert int(cuda_ops.histogram_frames(f.to(card))[0, 0, 77 * 16 // 256]) \
+        == 1920 * 1080
+
+
 @pytest.mark.parametrize("rows,pix,bins", [(5, 1000, 16), (3, 7, 4),
-                                           (48, 30001, 16), (2, 50, 128)])
+                                           (48, 30001, 16), (2, 50, 128),
+                                           (4, 333, 1)])
 def test_ids_kernel_bit_exact(card, rows, pix, bins):
     g = torch.Generator().manual_seed(rows + pix)
     v = torch.randint(-2, bins + 3, (rows, pix), generator=g,

@@ -8,6 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from scanner_tpu.kernels import pallas_ops
 from scanner_tpu.kernels.imgproc import Histogram as JaxHistogram
@@ -94,3 +96,124 @@ def test_plain_launch_counts_nothing():
     before = cuda_ops.histogram_launches
     cuda_ops.histogram_frames(torch.zeros((1, 4, 4, 3), dtype=torch.uint8))
     assert cuda_ops.histogram_launches == before
+
+
+# -- the edges the CUDA kernel's design has (csrc/histogram.cu): channel
+# counts and bins that pick its private-counter or general instance, flat
+# and two-valued frames (every lane on one bin), odd geometries.  The
+# plain version is held against the Pallas kernel here; tests/
+# test_torch_cuda.py holds the kernel against the plain version.
+
+def _pallas_frames(frames, bins):
+    return np.asarray(pallas_ops.histogram_frames(jnp.asarray(frames),
+                                                  bins=bins, interpret=True))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("bins", [1, 17, 128])
+def test_frames_plain_matches_pallas_channels_bins(channels, bins):
+    rng = np.random.RandomState(channels * 1000 + bins)
+    frames = rng.randint(0, 256, (2, 13, 11, channels)).astype(np.uint8)
+    got = cuda_ops.histogram_frames(torch.from_numpy(frames), bins).numpy()
+    assert got.shape == (2, channels, bins)
+    np.testing.assert_array_equal(got, _pallas_frames(frames, bins))
+
+
+@pytest.mark.parametrize("kind,bins", [("flat", 16), ("flat", 17),
+                                       ("two_valued", 16),
+                                       ("two_valued", 128)])
+def test_flat_and_two_valued_frames_match_pallas(kind, bins):
+    """Channels flat at 0, 255 and 128, or pixels alternating between 0
+    and 255: every count lands in one or two bins."""
+    frames = np.empty((3, 9, 14, 3), np.uint8)
+    if kind == "flat":
+        frames[...] = np.array([0, 255, 128], np.uint8)
+    else:
+        frames[...] = (np.indices((3, 9, 14)).sum(axis=0) % 2 * 255)[
+            ..., None].astype(np.uint8)
+    got = cuda_ops.histogram_frames(torch.from_numpy(frames), bins).numpy()
+    np.testing.assert_array_equal(got, _pallas_frames(frames, bins))
+    assert (got.sum(axis=2) == 9 * 14).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 1, 17, 4),
+                                   (2, 5, 1, 3), (4, 3, 7, 2)])
+def test_odd_geometries_match_pallas(shape):
+    rng = np.random.RandomState(sum(shape) + 7)
+    frames = rng.randint(0, 256, shape).astype(np.uint8)
+    got = cuda_ops.histogram_frames(torch.from_numpy(frames)).numpy()
+    np.testing.assert_array_equal(got, _pallas_frames(frames, 16))
+
+
+# -- how the CUDA kernel splits rows among blocks --------------------------
+
+# hist_cluster_caps on an NVIDIA H100 80GB HBM3: how many clusters of
+# k = 1..16 one-block-per-SM blocks the card holds at once (its GPCs fit
+# 15 clusters of 8 and 7 of 16, not 132 / k)
+H100_CAPS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+
+@pytest.mark.parametrize("rows,k", [
+    (16, 6),    # the engine's 16-frame calls: 96 blocks in one wave
+    (8, 9),     # its 8-frame tail
+    (32, 3),    # the shot path's 32
+    (33, 3),
+    (1, 16),
+    (600, 1),   # more frames than SMs: one block each, in waves
+])
+def test_blocks_per_row_at_main_path_batches(rows, k):
+    assert cuda_ops.blocks_per_row(rows, 480 * 640 * 3, H100_CAPS) == k
+
+
+@pytest.mark.parametrize("rows,row_bytes,k", [
+    (16, 97 * 131 * 3, 2),   # each block keeps MIN_BLOCK_BYTES of a row
+    (1, 16384 * 5, 5),
+    (3, 1000, 1),
+    (16, 0, 1),
+])
+def test_blocks_per_row_keeps_min_block_bytes(rows, row_bytes, k):
+    assert cuda_ops.blocks_per_row(rows, row_bytes, H100_CAPS) == k
+
+
+def _split_row(addr, n, rank, k):
+    """A Python copy of split_row in csrc/histogram.cu (which runs on the
+    card) for a uint8 row of n bytes at `addr`: (head, vectors, g0, g1),
+    block `rank` of k taking the body's 16-byte vectors [g0, g1).  The
+    test below checks the partition and channel phase this copy states;
+    the CUDA function itself is held to it by tests/test_torch_cuda.py's
+    views at byte offsets 0..15."""
+    head = min((16 - addr % 16) % 16, n)
+    vectors = (n - head) // 16
+    return head, vectors, vectors * rank // k, vectors * (rank + 1) // k
+
+
+@settings(max_examples=300, deadline=None)
+@given(addr=st.integers(0, 4095), pixels=st.integers(0, 400),
+       channels=st.integers(1, 4), k=st.integers(1, 16))
+def test_row_split_covers_each_byte_once_in_its_channel(addr, pixels,
+                                                        channels, k):
+    """The private-counter kernel's partition of a uint8 row: block
+    `rank` counts body vectors [g0, g1), byte b of vector v in channel
+    ((head + 16 v) % C + b) % C (a lane's phase, fixed across its
+    steps), and block 0 the head and the tail in channel e % C.  Every
+    byte lands in exactly one block, in channel e % C."""
+    n = pixels * channels
+    seen = np.zeros(n, np.int64)
+    chan = np.full(n, -1)
+    for rank in range(k):
+        head, vectors, g0, g1 = _split_row(addr, n, rank, k)
+        assert (addr + head) % 16 == 0 or head == n
+        for v in range(g0, g1):
+            r = (head + 16 * v) % channels
+            for b in range(16):
+                e = head + 16 * v + b
+                seen[e] += 1
+                chan[e] = (r + b % channels) % channels
+        if rank == 0:
+            for e in list(range(head)) + list(range(head + 16 * vectors,
+                                                    n)):
+                seen[e] += 1
+                chan[e] = e % channels
+    assert (seen == 1).all()
+    assert (chan == np.arange(n) % channels).all()
+

@@ -17,6 +17,9 @@ PKG = os.path.join(REPO, "scanner_tpu_torch")
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    tools = os.path.join(REPO, "tools")
+    out += [os.path.join(tools, f) for f in os.listdir(tools)
+            if f.startswith("torch_") and f.endswith(".py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
