@@ -56,7 +56,30 @@ Phases, each printed on its own line; any failure exits non-zero:
                   1e-3 of impl="xla" (the plain ring), step time; the
                   kernel against its plain version on the q, k, v that
                   the first step's first temporal block gave it;
-  9. timings      each kernel at its timing shape with its bound, its
+  9. model_serve  ObjectDetect, FaceEmbedding and InstanceSegment (width
+                  8, the shipped weights) over 128 stored 640 x 480
+                  frames through Client(device="cuda"): frames/s of two
+                  card runs and of the port's CPU run, and a torch.profiler
+                  trace of one call each (the device's busy share, the
+                  kernels with the most device time).  Then the shipped
+                  tasks' scenes (64 x 64, 40 each) on the card and on the
+                  CPU: ObjectDetect and FaceDetect recall >= 0.7 at IoU
+                  0.3, FaceEmbedding recall@1 >= 0.75 over 8 identities,
+                  InstanceSegment recall >= 0.7, mask IoU >= 0.55 and the
+                  right shape kind ahead by 0.05 (tests/test_models.py's
+                  bounds); against the CPU's rows, every CPU box met
+                  within IoU 0.9 on >= 95 % of frames, embeddings at
+                  cosine >= 0.99, masks at IoU >= 0.9 where matched;
+ 10. golden       the bench's Resize(320, 240) -> Blur(3, 1.1) ->
+                  Histogram -> HistDiff chain, CropResize (64 x 64, boxes
+                  from 4 % to 94 % of the frame) and OpticalFlow over 96
+                  stored 640 x 480 frames, on the card and on the CPU:
+                  pixels within 1 count of the CPU's, every Histogram row
+                  the plain histogram of the card's own Resize -> Blur
+                  frame, every HistDiff row the plain version's over those
+                  rows, flow within atol 1e-3, and the histogram kernel
+                  launched through both its entries (frames, ids);
+ 11. timings      each kernel at its timing shape with its bound, its
                   plain version and one library call (torch.bincount;
                   F.scaled_dot_product_attention in f32), by CUDA events
                   around wrapper calls, and the kernel's device time
@@ -73,8 +96,9 @@ frame table, not a video stream (PERF.md, "H100 port").  Everything else
 — Client.run -> executor -> evaluator -> kernel -> sink — is the path a
 user's job takes.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object {"kernels": [...]}; the
+histogram's `launches` counts config 1's run and the golden phase's.
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -128,6 +152,13 @@ TRAIN_FLASH_SHAPE = (TRAIN_BATCH * 4, TRAIN_TIME, 32)
 
 W, H, C, BINS = 640, 480, 3, 16
 WORK, IO = 32, 96
+# [model_serve]: the bench's model configs 4, 5 and 7 (bench.py
+# N_MODEL_FRAMES) at width 8, and the shipped tasks' scenes (64 x 64)
+MODEL_FRAMES, SCENES = 128, 40
+MODEL_OPS = ("ObjectDetect", "FaceEmbedding", "InstanceSegment")
+# [golden]: the bench's Resize -> Blur -> Histogram -> HistDiff chain
+# (bench.py, PerfParams.manual(8, 16)) over stored 640 x 480 frames
+GOLDEN_FRAMES, CROP = 96, 64
 # L1 histogram distance (of 3 x 640 x 480 counts) that flags a boundary
 SHOT_THRESHOLD = 100000.0
 
@@ -646,6 +677,309 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
                 flash_share_of_step=2 * flash_ms / (step_s * 1e3))
 
 
+def register_smoke_ops(st):
+    """Two helper ops of this script, on the device the engine gives them:
+    FrameRows hands frames on as a pickled column (the sink would encode
+    a frame column with H.264, and the card's machine has no libav);
+    GoldenBoxes makes one CropResize box per frame from the frame's first
+    pixel, from 4 % to 94 % of the frame: smaller and larger than the
+    crop's 64 x 64 output."""
+    from typing import Any, Sequence
+
+    import numpy as np
+    import torch
+
+    def frame_rows(self, frame):
+        return frame
+
+    def golden_boxes(self, frame):
+        x = torch.as_tensor(frame if isinstance(frame, torch.Tensor)
+                            else np.asarray(frame))
+        s = x[:, 0, 0, 0].to(torch.float32) / 255.0 * 0.9 + 0.04
+        box = torch.stack([torch.full_like(s, 0.02),
+                           torch.full_like(s, 0.03), 0.02 + s,
+                           0.03 + s * 0.95], dim=1)
+        return box if isinstance(frame, torch.Tensor) else box.numpy()
+
+    # this module's annotations are strings (PEP 563) that register_op
+    # would evaluate in its globals, where `st` is not: give it objects
+    for name, fn in (("FrameRows", frame_rows),
+                     ("GoldenBoxes", golden_boxes)):
+        fn.__annotations__ = {"frame": Sequence[st.FrameType],
+                              "return": Sequence[Any]}
+        st.register_op(name=name, device=st.DeviceType.TPU, batch=16)(
+            type(name, (st.Kernel,), {"execute": fn}))
+
+
+def run_op(client, st, table: str, op: str, out: str, work: int = 16,
+           **kw):
+    """`op` over the stored table into `out`; returns (wall seconds, the
+    job's stage seconds {load, evaluate, save, evaluate:<op>})."""
+    col = getattr(client.ops, op)(
+        frame=client.io.Input([st.NamedStream(client, table)]), **kw)
+    t0 = time.time()
+    job = client.run(client.io.Output(col, [st.NamedStream(client, out)]),
+                     st.PerfParams.manual(work, 4 * work),
+                     show_progress=False, cache_mode=st.CacheMode.Overwrite)
+    wall = time.time() - t0
+    stats = client.get_profile(job).statistics()
+    return wall, {k: round(v["total_s"], 4) for k, v in stats.items()
+                  if k in ("load", "evaluate", "save")
+                  or k.startswith("evaluate:")}
+
+
+def rows_of(client, st, table: str) -> list:
+    return list(st.NamedStream(client, table).load())
+
+
+def profile_model_op(st, op: str, frames) -> dict:
+    """One execute() of `op` (width 8, shipped weights) on the card over
+    `frames`, traced by torch.profiler after a warm-up: the device's busy
+    time against the call's wall time, and the three kernels with the
+    most device time, each with its share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from scanner_tpu_torch import models
+    from scanner_tpu_torch.graph.ops import KernelConfig
+    k = getattr(models, op)(KernelConfig(device=st.DeviceType.TPU,
+                                         devices=[torch.device("cuda", 0)]),
+                            width=8)
+    x = torch.from_numpy(frames).cuda()
+    for _ in range(2):
+        k.execute(x)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a trace may come back without device records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            k.execute(x)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        by_name, launches = {}, 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                by_name[e.key] = by_name.get(e.key, 0.0) \
+                    + e.self_device_time_total / 1e3
+                launches += e.count
+        busy = sum(by_name.values())
+        if busy:
+            break
+    check(busy > 0, f"{op}: the profiler trace holds no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return dict(batch=len(frames), wall_ms=wall * 1e3, device_ms=busy,
+                device_share=busy / (wall * 1e3), kernels=launches,
+                top=[(name[:60], round(ms / busy, 3)) for name, ms in top])
+
+
+def model_serve(st, work: str, seed: int) -> dict:
+    """The model zoo through Client(device="cuda") with the shipped
+    weights at width 8: frames/s on the bench geometry (two card runs,
+    one CPU run), the shipped tasks' quality bounds on the card, and the
+    card's rows against the port's CPU rows.  Every card run comes before
+    the CPU client opens the database (two clients must not both create
+    tables in it)."""
+    import numpy as np
+    from scanner_tpu_torch.models import detect_train as dt
+    from scanner_tpu_torch.models import seg_train as sg
+    from scanner_tpu_torch.models.detection import unpack_detections
+    from scanner_tpu_torch.models.segmentation import unpack_instances
+    rng = np.random.RandomState(21)
+    rect = [dt.render_rect_scene(rng) for _ in range(SCENES)]
+    rng = np.random.RandomState(22)
+    faces = [dt.render_face_scene(rng) for _ in range(SCENES)]
+    rng = np.random.RandomState(31)
+    shapes = [sg.render_shape_scene(rng) for _ in range(SCENES)]
+    rng = np.random.RandomState(99)
+    views = [dt.render_identity(i, rng) for i in range(8)] \
+        + [dt.render_identity(i, rng) for i in range(8)]
+    frames = make_frames(MODEL_FRAMES, seed + 2)
+    # (op, table, keyword arguments, how to unpack its rows)
+    runs = [(op, "model_frames", {}, None) for op in MODEL_OPS] + [
+        ("ObjectDetect", "rect", {"score_thresh": 0.3}, unpack_detections),
+        ("FaceDetect", "faces", {"score_thresh": 0.3}, unpack_detections),
+        ("InstanceSegment", "shapes", {"score_thresh": 0.3},
+         unpack_instances),
+        ("FaceEmbedding", "views", {}, None)]
+    db_path = os.path.join(work, "model_db")
+    gpu = st.Client(db_path=db_path, device="cuda")
+    for name, fr in (("model_frames", frames),
+                     ("rect", [sc[0] for sc in rect]),
+                     ("faces", [sc[0] for sc in faces]),
+                     ("shapes", [sc[0] for sc in shapes]),
+                     ("views", views)):
+        gpu.new_table(name, ["frame"], [[f] for f in fr],
+                      codecs={"frame": "pickle"})
+    secs, out = {}, {}
+    for op, table, kw, _ in runs:
+        secs[(op, table, "cuda")] = run_op(gpu, st, table, op,
+                                           f"{op}_{table}_cuda", width=8,
+                                           **kw)[0]
+        if table == "model_frames":   # a second run: warm cuDNN plans
+            secs[(op, table, "cuda2")], stages = run_op(
+                gpu, st, table, op, f"{op}_{table}_cuda2", width=8, **kw)
+            out[f"{op.lower()}_stage_s"] = json.dumps(stages,
+                                                      sort_keys=True)
+            out[f"{op.lower()}_profile"] = json.dumps(profile_model_op(
+                st, op, frames[:{"ObjectDetect": 8, "FaceEmbedding": 16,
+                                 "InstanceSegment": 4}[op]]))
+    cpu = st.Client(db_path=db_path, device="cpu")
+    for op, table, kw, _ in runs:
+        secs[(op, table, "cpu")] = run_op(cpu, st, table, op,
+                                          f"{op}_{table}_cpu", width=8,
+                                          **kw)[0]
+    rows = {k: np.stack(rows_of(cpu, st, f"{k[0]}_{k[1]}_{k[2]}"))
+            for k in secs}
+    for op, table, kw, unpack in runs:
+        got, ref = rows[(op, table, "cuda")], rows[(op, table, "cpu")]
+        check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+              f"{op} on {table}: card rows {got.shape} are not finite rows "
+              f"like the CPU's {ref.shape}")
+        if table == "model_frames":
+            check(np.array_equal(got, rows[(op, table, "cuda2")]),
+                  f"{op}: two card runs stored different rows")
+            key = op.lower()
+            out[f"{key}_fps"] = json.dumps([
+                MODEL_FRAMES / secs[(op, table, d)] for d in ("cuda",
+                                                               "cuda2")])
+            out[f"{key}_cpu_fps"] = MODEL_FRAMES / secs[(op, table, "cpu")]
+            if op == "FaceEmbedding":
+                cos = float((got * ref).sum(axis=1).min())
+                check(cos >= 0.99, f"FaceEmbedding: cosine {cos} < 0.99 "
+                                   f"between the card and the CPU")
+                out["embedding_min_cosine_640x480"] = cos
+            else:   # information: many near-tied low scores at 0.05
+                out[f"{key}_boxes_agree_640x480"] = dt.boxes_agree(
+                    ref, got, unpack_detections if op == "ObjectDetect"
+                    else unpack_instances)
+        elif op == "FaceEmbedding":
+            r1 = float(((got[8:] @ got[:8].T).argmax(1)
+                        == np.arange(8)).mean())
+            cos = float((got * ref).sum(axis=1).min())
+            check(r1 >= 0.75 and cos >= 0.99,
+                  f"FaceEmbedding on the card: recall@1 {r1} (>= 0.75), "
+                  f"cosine to the CPU {cos} (>= 0.99)")
+            out.update(views_recall_at_1=r1, views_min_cosine_vs_cpu=cos)
+        else:
+            scenes = {"rect": rect, "faces": faces, "shapes": shapes}[table]
+            if op == "InstanceSegment":
+                m, total, iou_c, iou_w = sg.segment_quality(
+                    got, [(sc[1], sc[2]) for sc in scenes])
+                check(m >= 0.7 * total and iou_c >= 0.55
+                      and iou_c > iou_w + 0.05,
+                      f"InstanceSegment on the card: recall {m}/{total}, "
+                      f"mask IoU {iou_c:.3f} (wrong kind {iou_w:.3f})")
+                ious = sg.matched_mask_ious(ref, got)
+                check(len(ious) > 0 and float(np.mean(ious)) >= 0.9,
+                      f"InstanceSegment: mask IoU card vs CPU "
+                      f"{np.mean(ious) if ious else 0:.3f} < 0.9")
+                out.update(shapes_recall=m / total, shapes_mask_iou=iou_c,
+                           shapes_mask_iou_wrong_kind=iou_w,
+                           shapes_mask_iou_vs_cpu=float(np.mean(ious)))
+            else:
+                truth = [sc[1] for sc in scenes]
+                hits, total = dt.recall(got, truth, unpack)
+                check(hits >= 0.7 * total, f"{op}: recall {hits}/{total} "
+                                           f"on the card < 0.7")
+                out[f"{table}_recall"] = hits / total
+                out[f"{table}_recall_cpu"] = \
+                    dt.recall(ref, truth, unpack)[0] / total
+            share = dt.boxes_agree(ref, got, unpack)
+            check(share >= 0.95, f"{op}: the CPU's boxes met within IoU "
+                                 f"0.9 on {share:.3f} of frames < 0.95")
+            out[f"{table}_boxes_agree_vs_cpu"] = share
+    return out
+
+
+def golden(st, work: str, seed: int) -> dict:
+    """The golden chain and the other resamplers over stored 640 x 480
+    frames through Client(device="cuda") and Client(device="cpu"):
+    (a) Resize(W/2, H/2) -> Blur(3, 1.1), (b) + Histogram, (c) +
+    HistDiff, CropResize with boxes of several sizes, OpticalFlow."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.kernels import cuda_ops, shot
+    db_path = os.path.join(work, "golden_db")
+    gpu = st.Client(db_path=db_path, device="cuda")
+    frames = make_frames(GOLDEN_FRAMES, seed + 1)
+    gpu.new_table("golden", ["frame"], [[f] for f in frames],
+                  codecs={"frame": "pickle"})
+
+    def graph(client, what):
+        src = client.io.Input([st.NamedStream(client, "golden")])
+        if what == "crop":
+            return client.ops.FrameRows(frame=client.ops.CropResize(
+                frame=src, box=client.ops.GoldenBoxes(frame=src),
+                size=CROP))
+        if what == "flow":
+            return client.ops.OpticalFlow(frame=src)
+        col = client.ops.Blur(frame=client.ops.Resize(
+            frame=src, width=[W // 2], height=[H // 2]), kernel_size=3,
+            sigma=1.1)
+        if what == "a":
+            return client.ops.FrameRows(frame=col)
+        col = client.ops.Histogram(frame=col)
+        return col if what == "b" else client.ops.HistDiff(frame=col)
+
+    def run(client, dev):
+        for what in ("a", "b", "c", "crop", "flow"):
+            t0 = time.time()
+            client.run(client.io.Output(graph(client, what), [
+                st.NamedStream(client, f"{what}_{dev}")]),
+                st.PerfParams.manual(8, 16), show_progress=False,
+                cache_mode=st.CacheMode.Overwrite)
+            secs[(what, dev)] = time.time() - t0
+
+    secs = {}
+    cuda_ops.reset_counts()
+    run(gpu, "cuda")
+    launches = cuda_ops.histogram_launches
+    ids = cuda_ops.histogram_ids_launches
+    # the CPU client opens the database once the card's runs are in it
+    cpu = st.Client(db_path=db_path, device="cpu")
+    run(cpu, "cpu")
+    check(ids > 0 and launches - ids > 0,
+          f"[golden]: the histogram kernel launched {launches - ids} times "
+          f"through the frame entry and {ids} through the id entry")
+    get = {k: rows_of(cpu, st, f"{k[0]}_{k[1]}") for k in secs}
+    out = dict(frames=GOLDEN_FRAMES, geometry=f"{W}x{H}",
+               histogram_launches=launches, ids_launches=ids)
+    for what in ("a", "crop"):
+        a = np.stack(get[(what, "cuda")]).astype(np.int32)
+        b = np.stack(get[(what, "cpu")]).astype(np.int32)
+        check(a.shape == b.shape and len(a) == GOLDEN_FRAMES,
+              f"[golden] {what}: {a.shape} vs {b.shape}")
+        d = np.abs(a - b)
+        check(int(d.max()) <= 1, f"[golden] {what}: pixels differ by "
+                                 f"{int(d.max())} counts card vs CPU")
+        out[f"{what}_pixels_differing_vs_cpu"] = float((d > 0).mean())
+    small = np.stack(get[("a", "cuda")])
+    check(small.shape == (GOLDEN_FRAMES, H // 2, W // 2, C),
+          f"[golden] Resize -> Blur gave {small.shape}")
+    hist = np.stack(get[("b", "cuda")])
+    want = cuda_ops.histogram_frames_plain(torch.from_numpy(small)).numpy()
+    check(np.array_equal(hist, want), "[golden] Histogram rows on the card "
+                                      "differ from the plain histogram of "
+                                      "its own Resize -> Blur frames")
+    win = np.stack([hist[np.maximum(np.arange(GOLDEN_FRAMES) - 1, 0)],
+                    hist], axis=1)
+    diff = get[("c", "cuda")]
+    check(diff == shot.HistDiff(None).execute(win),
+          "[golden] HistDiff rows on the card differ from the plain "
+          "version's over the Histogram rows")
+    flow = np.stack(get[("flow", "cuda")])
+    ref = np.stack(get[("flow", "cpu")])
+    check(flow.shape == ref.shape == (GOLDEN_FRAMES, H, W, 2)
+          and bool(np.isfinite(flow).all()), f"[golden] flow {flow.shape}")
+    err = float(np.abs(flow - ref).max())
+    check(err <= 1e-3, f"[golden] flow differs from the CPU by {err}")
+    out["flow_max_abs_err_vs_cpu"] = err
+    out["histdiff_nonzero_rows"] = int(sum(x != 0 for x in diff))
+    for what in ("a", "b", "c", "crop", "flow"):
+        out[f"{what}_fps"] = GOLDEN_FRAMES / secs[(what, "cuda")]
+        out[f"{what}_cpu_fps"] = GOLDEN_FRAMES / secs[(what, "cpu")]
+    return out
+
+
 # the main path's instance of the histogram kernel (C = 3, 16 bins)
 HIST_MAIN_FUNCTION = "hist_u8_privateILi3EE"
 
@@ -731,7 +1065,8 @@ def main() -> int:
     import scanner_tpu_torch.kernels  # noqa: F401
     from scanner_tpu_torch import native
     from scanner_tpu_torch.kernels import attention, color, cuda_ops
-    import scanner_tpu_torch.models  # noqa: F401  (registers PoseDetect)
+    import scanner_tpu_torch.models  # noqa: F401  (registers the models)
+    register_smoke_ops(st)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -898,6 +1233,12 @@ def main() -> int:
         flash_err = max(flash_errs[k] for k in ("m", "l", "out"))
         phase("pose_train", **train)
 
+        # -- the model zoo, then the golden chain ----------------------
+        phase("model_serve", **model_serve(st, work, args.seed),
+              card=repr(card))
+        gold = golden(st, work, args.seed)
+        phase("golden", **gold, card=repr(card))
+
         # -- timings at the main path's shape -------------------------
         x = torch.from_numpy(frames[:16]).to(dev)
         b, hh, ww, c = x.shape
@@ -974,7 +1315,7 @@ def main() -> int:
         "route": "cuda",
         "source": "scanner_tpu_torch/csrc/histogram.cu",
         "replaces": "scanner_tpu/kernels/pallas_ops.py:33",
-        "launches": launches[1],
+        "launches": launches[1] + gold["histogram_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -36,8 +36,10 @@ MAX_CHANNELS = 4  # csrc/histogram.cu kMaxChannels
 # the least of a row a block takes
 MIN_BLOCK_BYTES = 16384
 
-# launches of the histogram kernel (csrc/histogram.cu) in this process
+# launches of the histogram kernel (csrc/histogram.cu) in this process,
+# through either entry, and of those through the id entry (histogram_ids)
 histogram_launches = 0
+histogram_ids_launches = 0
 
 _SRC = os.path.join(native.PKG_DIR, "csrc", "histogram.cu")
 _lib = None
@@ -51,8 +53,8 @@ _cards = {}
 
 
 def reset_counts() -> None:
-    global histogram_launches
-    histogram_launches = 0
+    global histogram_launches, histogram_ids_launches
+    histogram_launches = histogram_ids_launches = 0
 
 
 def nvcc_path() -> str:
@@ -171,11 +173,13 @@ def _check_bins(bins: int) -> None:
         raise ValueError(f"bins must be in [1, {MAX_BINS}], got {bins}")
 
 
-def _launch(fn, t: torch.Tensor, rows: int, n: int, shape, *args):
+def _launch(fn, t: torch.Tensor, rows: int, n: int, shape, *args,
+            ids: bool = False):
     """Launches `fn` over `rows` rows of `n` elements of `t` on the
     current stream of t's card; returns the output of `shape`, which the
-    kernel writes whole.  Raises on a CUDA error."""
-    global histogram_launches
+    kernel writes whole.  Raises on a CUDA error.  `ids` counts the
+    launch as the id entry's too."""
+    global histogram_launches, histogram_ids_launches
     index = t.device.index
     k = blocks_per_row(rows, n * t.element_size(), cluster_caps(index))
     out = torch.empty(shape, dtype=torch.int32, device=t.device)
@@ -191,6 +195,7 @@ def _launch(fn, t: torch.Tensor, rows: int, n: int, shape, *args):
                            f"{err}")
     with _count_lock:
         histogram_launches += 1
+        histogram_ids_launches += ids
     return out
 
 
@@ -246,4 +251,4 @@ def histogram_ids(vals: torch.Tensor, bins: int = 16) -> torch.Tensor:
     if not R:
         return torch.empty((0, bins), dtype=torch.int32, device=vals.device)
     return _launch((_lib or load_library()).hist_i32_ids, vals, R, P,
-                   (R, bins), bins)
+                   (R, bins), bins, ids=True)

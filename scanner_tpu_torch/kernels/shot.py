@@ -15,7 +15,36 @@ import torch
 
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
+from . import cuda_ops
 from .imgproc import HISTOGRAM_BINS, histogram
+
+
+def _window_ids(x: torch.Tensor) -> torch.Tensor:
+    """(n, ..., C) integer values -> (n * C, P) int32 bin ids with the
+    JAX package's `_histogram_impl` rules: bin = (v * 16) // 256 in
+    int32, below 0 clamped to bin 0 (jnp.bincount clips negatives), 16 or
+    more mapped to the padding id 16, which counts nowhere."""
+    n, c = x.shape[0], x.shape[-1]
+    v = ((x.to(torch.int32) * HISTOGRAM_BINS) >> 8).clamp_(0, HISTOGRAM_BINS)
+    return v.reshape(n, -1, c).transpose(1, 2).reshape(n * c, -1) \
+        .contiguous()
+
+
+def window_histograms(x):
+    """(n, ..., C) window members -> (n, C, 16) counts, computed where
+    they live.  uint8 (n, H, W, C) frames with C <= 4 take `histogram`
+    (the CUDA kernel's frame entry on the card); any other integer
+    window takes the kernel's id entry (cuda_ops.histogram_ids) on the
+    card, and the plain versions of both on the CPU and in numpy."""
+    n, c = x.shape[0], x.shape[-1]
+    u8 = torch.uint8 if isinstance(x, torch.Tensor) else np.uint8
+    if x.ndim == 4 and 1 <= c <= cuda_ops.MAX_CHANNELS and x.dtype == u8:
+        return histogram(x.contiguous() if isinstance(x, torch.Tensor)
+                         else x)
+    counts = cuda_ops.histogram_ids(
+        _window_ids(torch.as_tensor(x)), HISTOGRAM_BINS).reshape(
+        n, c, HISTOGRAM_BINS)
+    return counts.numpy() if isinstance(x, np.ndarray) else counts
 
 
 @register_op(device=DeviceType.TPU, stencil=[-1, 0], batch=16)
@@ -29,18 +58,19 @@ class HistDiff(Kernel):
     3x16 ints."""
 
     def execute_traced(self, frame):
-        """(batch, 2, H, W, C) uint8 window in, (batch,) float32 L1
-        distances out: both window histograms come from one histogram
-        call where the window lives (the CUDA kernel on the card, the
-        numpy flavor for host arrays).  The counts are exact small
-        integers, so the float32 L1 sums are exact and the host
-        conversion in finish() is bit-stable."""
+        """(batch, 2, ..., C) integer window in, (batch,) float32 L1
+        distances out, as the JAX package computes them: the trailing
+        axis is the channel axis and each member's values are binned by
+        (v * 16) // 256 (`window_histograms`), so a window of uint8
+        frames gives colour histograms and a window of Histogram rows
+        (batch, 2, 3, 16) bins the counts themselves.  Both members'
+        histograms come from one histogram call where the window lives.
+        The counts are exact small integers, so the float32 L1 sums are
+        exact and the host conversion in finish() is bit-stable."""
         b, c = frame.shape[0], frame.shape[-1]
         flat = frame.reshape((2 * b,) + tuple(frame.shape[2:]))
-        if isinstance(flat, torch.Tensor):
-            flat = flat.contiguous()
-        h = torch.as_tensor(histogram(flat)).to(torch.float32).reshape(
-            b, 2, c, HISTOGRAM_BINS)
+        h = torch.as_tensor(window_histograms(flat)).to(
+            torch.float32).reshape(b, 2, c, HISTOGRAM_BINS)
         return (h[:, 0] - h[:, 1]).abs().sum(dim=(1, 2))
 
     def finish(self, result):

@@ -16,13 +16,14 @@ imported.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from .. import native
+from .nets import init_module_
 
 WEIGHTS_DIR = os.path.join(native.REPO_DIR, "scanner_tpu", "models",
                            "weights")
@@ -87,3 +88,18 @@ def load_npz(model: nn.Module, path: str) -> nn.Module:
     with np.load(path) as data:
         flat = dict(data)
     return load_params(model, flat)
+
+
+def load_weights(model: nn.Module, shipped: Optional[str],
+                 checkpoint_dir: Optional[str], seed: int,
+                 op: str) -> nn.Module:
+    """A model op's weights: an exported `.npz` at `checkpoint_dir`, else
+    the shipped file `shipped` (None: no shipped weights fit), else
+    random weights from `seed`."""
+    path = checkpoint_dir or (shipped_weights(shipped) if shipped else None)
+    if path is None:
+        return init_module_(model, seed)
+    if not path.endswith(".npz"):
+        raise ValueError(f"{op} loads exported .npz weight files; orbax "
+                         f"checkpoint directories are not ported ({path})")
+    return load_npz(model, path)

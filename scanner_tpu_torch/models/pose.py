@@ -18,7 +18,7 @@ from torch import nn
 
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
-from .convert import load_npz, shipped_weights
+from .convert import load_weights
 from .nets import Backbone, DeconvHead, Dense, TemporalBlock, init_module_
 
 NUM_KEYPOINTS = 17
@@ -128,18 +128,9 @@ class PoseDetect(Kernel):
         self.device = torch.device(config.devices[0]) if config.devices \
             else torch.device("cpu")
         self.model = VideoPoseNet(width=width)
-        if checkpoint_dir is None and pretrained \
-                and width == self._shipped_width:
-            checkpoint_dir = shipped_weights(self._shipped)
-        if checkpoint_dir is not None:
-            if not checkpoint_dir.endswith(".npz"):
-                raise ValueError(
-                    f"PoseDetect loads exported .npz weight files; orbax "
-                    f"checkpoint directories are not ported "
-                    f"({checkpoint_dir})")
-            load_npz(self.model, checkpoint_dir)
-        else:
-            init_module_(self.model, seed)
+        shipped = self._shipped if (pretrained and
+                                    width == self._shipped_width) else None
+        load_weights(self.model, shipped, checkpoint_dir, seed, "PoseDetect")
         self.model.to(self.device).eval()
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:

@@ -1,6 +1,11 @@
 """The CUDA kernels against their plain versions on the card: the
 histogram bit for bit, the flash-attention update (TF32 on the tensor
-cores) within a tolerance stated below.
+cores) within a tolerance stated below.  Also the ops of the image
+stdlib and the model zoo on the card against the same ops on the CPU:
+resamplers within 1 uint8 count, flow within atol 1e-3, HistDiff over
+Histogram rows (the kernel's id entry) exactly, and the model ops within
+the bounds of chip_smoke.py's [model_serve] (boxes within IoU 0.9 on 95 %
+of frames, cosine >= 0.99, mask IoU >= 0.9 on matched instances).
 Marked `cuda`: they need an NVIDIA card with nvcc (sm_90a) and skip
 elsewhere.  Run on the card with
 
@@ -259,3 +264,104 @@ def test_flash_kernel_takes_unaligned_views(card):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# -- the image stdlib and the model zoo on the card, against the CPU -------
+
+
+def _window_rows(seed):
+    import numpy as np
+    return np.random.RandomState(seed).choice(
+        [-3, 0, 1, 15, 16, 17, 200, 255, 256, 4000], (16, 2, 3, 16)) \
+        .astype(np.int32)
+
+
+def test_histdiff_over_histogram_rows_takes_the_id_entry(card):
+    from scanner_tpu_torch.kernels.shot import HistDiff
+    win = torch.from_numpy(_window_rows(0))
+    ids, total = cuda_ops.histogram_ids_launches, cuda_ops.histogram_launches
+    got = HistDiff(None).execute_traced(win.to(card))
+    torch.cuda.synchronize()
+    assert cuda_ops.histogram_ids_launches == ids + 1
+    assert cuda_ops.histogram_launches == total + 1
+    assert torch.equal(got.cpu(), HistDiff(None).execute_traced(win))
+
+
+def _frames(card, n=8, h=480, w=640, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randint(0, 256, (n, h, w, 3), generator=g, dtype=torch.uint8)
+    return f, f.to(card)
+
+
+@pytest.mark.parametrize("op", ["resize", "blur", "crop_resize"])
+def test_resamplers_on_card_within_one_count(card, op):
+    from scanner_tpu_torch.kernels import imgproc
+    f, fc = _frames(card)
+    if op == "resize":
+        def run(x):
+            return imgproc.resize(x, 240, 320)
+    elif op == "blur":
+        def run(x):
+            return imgproc.blur(x, [float(v) for v in
+                                    imgproc._gaussian_kernel1d(3, 1.1)])
+    else:
+        boxes = torch.tensor([[0.0, 0.0, 0.5, 0.5], [0.1, 0.2, 0.9, 0.7],
+                              [0.3, 0.3, 0.35, 0.4], [0.0, 0.0, 1.0, 1.0]]
+                             * 2)
+
+        def run(x):
+            return imgproc.crop_resize(x, boxes.to(x.device), 64, 64)
+    got = run(fc)
+    assert got.is_cuda
+    d = (got.cpu().to(torch.int32) - run(f).to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+
+
+def test_optical_flow_on_card_matches_cpu(card):
+    from scanner_tpu_torch.kernels import imgproc
+    f, fc = _frames(card, n=4, h=120, w=160)
+    win = torch.stack([f, f.roll((1, 2), (1, 2))], dim=1)
+    k = imgproc.OpticalFlow(None)
+    got = k.execute(win.to(card))
+    assert got.is_cuda and got.shape == (4, 120, 160, 2)
+    torch.testing.assert_close(got.cpu(), k.execute(win), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("op", ["ObjectDetect", "FaceEmbedding",
+                                "InstanceSegment"])
+def test_model_ops_on_card_match_cpu(card, op):
+    """The shipped weights on the shipped tasks' scenes: on the card
+    (rows left there) and on the CPU (numpy)."""
+    import numpy as np
+    from scanner_tpu_torch.common import DeviceType
+    from scanner_tpu_torch.graph.ops import KernelConfig
+    from scanner_tpu_torch.models import (detect_train, detection, face,
+                                          seg_train, segmentation)
+    from torch_model_checks import boxes_agree, matched_mask_ious
+    rng = np.random.RandomState(21)
+    if op == "ObjectDetect":
+        frames = [detect_train.render_rect_scene(rng)[0] for _ in range(40)]
+        cls, kw = detection.ObjectDetect, dict(score_thresh=0.3)
+    elif op == "FaceEmbedding":
+        frames = [detect_train.render_identity(i % 8, rng)
+                  for i in range(40)]
+        cls, kw = face.FaceEmbedding, {}
+    else:
+        frames = [seg_train.render_shape_scene(rng)[0] for _ in range(40)]
+        cls, kw = segmentation.InstanceSegment, dict(score_thresh=0.3)
+    frames = np.stack(frames)
+    on_card = cls(KernelConfig(device=DeviceType.TPU, devices=[card]),
+                  width=8, **kw)
+    got = on_card.execute(torch.from_numpy(frames).to(card))
+    assert got.is_cuda
+    got = got.cpu().numpy()
+    want = cls(KernelConfig(device=DeviceType.CPU), width=8,
+               **kw).execute(frames)
+    if op == "FaceEmbedding":
+        assert (got * want).sum(axis=1).min() >= 0.99
+    elif op == "ObjectDetect":
+        assert boxes_agree(want, got, detection.unpack_detections) >= 0.95
+    else:
+        assert boxes_agree(want, got, segmentation.unpack_instances) >= 0.95
+        assert np.mean(matched_mask_ious(want, got)) >= 0.9

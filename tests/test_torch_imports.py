@@ -62,19 +62,35 @@ def test_no_jax_or_reference_imports(path):
                 f"{path}:{node.lineno} imports {name}"
 
 
+PORTED_OPS = ["Blur", "CropResize", "FaceDetect", "FaceEmbedding",
+              "Grayscale", "HistDiff", "Histogram", "HistogramDelta",
+              "ImageDecode", "ImageEncode", "InstanceSegment",
+              "ObjectDetect", "OpticalFlow", "PoseDetect", "Resize",
+              "ShotBoundary"]
+
+
 def test_import_with_jax_blocked():
+    """Every module of the port imports with jax and the JAX package
+    absent, and importing the stdlib and the models registers every
+    ported op."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['scanner_tpu'] = None; "
             "import scanner_tpu_torch, scanner_tpu_torch.kernels; "
             "import scanner_tpu_torch.kernels.cuda_ops; "
             "import scanner_tpu_torch.kernels.attention; "
+            "import scanner_tpu_torch.kernels.image; "
             "import scanner_tpu_torch.parallel; "
+            "import scanner_tpu_torch.models; "
             "import scanner_tpu_torch.models.pose_train; "
-            "print('ok')")
+            "import scanner_tpu_torch.models.detect_train; "
+            "import scanner_tpu_torch.models.seg_train; "
+            "import scanner_tpu_torch.models.infer; "
+            "from scanner_tpu_torch.graph.ops import registry; "
+            "print(','.join(sorted(registry.names())))")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "ok"
+    assert r.stdout.strip().split(",") == PORTED_OPS
 
 
 def test_cuda_client_raises_without_card(tmp_path, monkeypatch):

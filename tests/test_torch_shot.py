@@ -1,6 +1,8 @@
 """Shot-detection kernels of the port against the JAX package on the same
 numpy inputs: HistDiff (exact — histogram counts are integers, so the
-float32 L1 sums are exact), HistogramDelta, ShotBoundary, detect_shots."""
+float32 L1 sums are exact) over uint8 frame windows and over any integer
+window (Histogram rows, int32 frames) with the JAX package's binning
+rules, HistogramDelta, ShotBoundary, detect_shots."""
 
 import numpy as np
 import pytest
@@ -24,6 +26,37 @@ def test_histdiff_matches_jax(b, h, w):
     assert tk.execute(win) == jk.execute(win)
     rows = [[win[i, 0], win[i, 1]] for i in range(b)]
     assert tk.execute(rows) == jk.execute(rows)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((5, 2, 3, 16), np.int32),        # Histogram rows: the golden chain
+    ((4, 2, 9, 11, 3), np.int32),     # int32 frames
+    ((3, 2, 9, 11, 3), np.uint8),     # uint8 frames, numpy and tensor
+    ((2, 2, 5, 7, 6), np.uint8),      # more channels than the kernel takes
+    ((4, 2, 3), np.int64),            # one value per channel
+])
+def test_histdiff_any_integer_window_matches_jax(shape, dtype):
+    """The JAX package bins every window member by (v * 16) // 256 over
+    its trailing (channel) axis: negatives count in bin 0 and values from
+    256 on count nowhere.  Integer windows here straddle both edges, so
+    the clip and the drop both show; the port's numpy path and its
+    tensor path (the plain versions of the kernel's id and frame
+    entries) must give the same distances, and so must execute()."""
+    rng = np.random.RandomState(sum(shape))
+    lo, hi = (0, 256) if dtype == np.uint8 else (-40, 300)
+    win = rng.randint(lo, hi, shape).astype(dtype)
+    if dtype == np.int32 and len(shape) == 4:
+        # rows of counts: mostly small, some past 256 and below 0
+        win = rng.choice([-3, 0, 1, 15, 16, 17, 200, 255, 256, 4000],
+                         shape).astype(dtype)
+    assert (win < 0).any() or dtype == np.uint8
+    want = np.asarray(jshot.HistDiff(None).execute_traced(win))
+    tk = tshot.HistDiff(None)
+    np.testing.assert_array_equal(tk.execute_traced(win).numpy(), want)
+    np.testing.assert_array_equal(
+        tk.execute_traced(torch.from_numpy(win)).numpy(), want)
+    assert tk.execute(win) == jshot.HistDiff(None).execute(win)
+    assert tk.execute(torch.from_numpy(win)) == [float(x) for x in want]
 
 
 def test_histogram_delta_and_boundary_match_jax():
