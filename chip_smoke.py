@@ -78,8 +78,30 @@ Phases, each printed on its own line; any failure exits non-zero:
                   the plain histogram of the card's own Resize -> Blur
                   frame, every HistDiff row the plain version's over those
                   rows, flow within atol 1e-3, and the histogram kernel
-                  launched through both its entries (frames, ids);
- 11. timings      each kernel at its timing shape with its bound, its
+                  launched through both its entries (frames, ids).  The
+                  chain graphs (a) Resize -> Blur, (b) + Histogram, (c) +
+                  HistDiff run twice on the card: fused (the default: the
+                  Resize+Blur[+Histogram] chain replays one CUDA graph per
+                  bucket) and staged (fusion off), whose rows must be the
+                  same bytes; it prints the chains planned, graphs
+                  captured and replayed, the histogram launches made by
+                  replays (at least one) and both runs' frames/s;
+ 11. ledgers      after configs 1, 2 and shot, and again after [golden]:
+                  Client.memory_report()'s live and watermark bytes by
+                  buffer kind beside torch.cuda.max_memory_allocated, and
+                  Client.compile_report()'s compile entries and roofline
+                  rows (Histogram, HistDiff; then Resize, Blur and the
+                  chains); any roofline efficiency above 1.05 fails (a
+                  count or a time would be wrong);
+ 12. warmup       the golden (b) graph, resized to 160 x 120 (no graph of
+                  [golden] serves it: chain graphs are kept per process),
+                  over 32 stored frames through an executor that hands
+                  its evaluator the hint
+                  precompile=(480, 640, 8) (a stored frame table carries
+                  no video geometry): every rung of the chain's bucket
+                  ladder must be captured by the warm-up, and the first
+                  real call must capture nothing;
+ 13. timings      each kernel at its timing shape with its bound, its
                   plain version and one library call (torch.bincount;
                   F.scaled_dot_product_attention in f32), by CUDA events
                   around wrapper calls, and the kernel's device time
@@ -97,7 +119,9 @@ frame table, not a video stream (PERF.md, "H100 port").  Everything else
 user's job takes.
 
 The line before the last is a JSON object {"kernels": [...]}; the
-histogram's `launches` counts config 1's run and the golden phase's.
+histogram's `launches` counts config 1's run and the golden phase's
+card runs, fused and staged (a graph replay counts the launches the
+graph holds: cuda_ops.count_replay).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -890,13 +914,52 @@ def model_serve(st, work: str, seed: int) -> dict:
     return out
 
 
+def series_sum(name: str) -> dict:
+    """{label values: value} of one series of the port's metrics
+    registry, the node label left out."""
+    from scanner_tpu_torch.util.metrics import registry
+    out = {}
+    for smp in registry().snapshot().get(name, {}).get("samples", []):
+        key = ",".join(str(v) for k, v in sorted(smp["labels"].items())
+                       if k != "node")
+        out[key] = out.get(key, 0.0) + smp["value"]
+    return out
+
+
+def graph_counts():
+    """(CUDA graphs captured, graph replays) of fused chains so far."""
+    return (sum(series_sum("scanner_tpu_fusion_graph_captures_total")
+                .values()),
+            sum(series_sum("scanner_tpu_fusion_graph_replays_total")
+                .values()))
+
+
+def same_bytes(a: list, b: list) -> bool:
+    """Two tables' rows are the same bytes: arrays of one dtype and
+    shape with equal bytes, or equal Python values."""
+    import numpy as np
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or x.tobytes() != y.tobytes():
+                return False
+        elif x != y:
+            return False
+    return True
+
+
 def golden(st, work: str, seed: int) -> dict:
     """The golden chain and the other resamplers over stored 640 x 480
     frames through Client(device="cuda") and Client(device="cpu"):
     (a) Resize(W/2, H/2) -> Blur(3, 1.1), (b) + Histogram, (c) +
-    HistDiff, CropResize with boxes of several sizes, OpticalFlow."""
+    HistDiff, CropResize with boxes of several sizes, OpticalFlow.  On
+    the card (a), (b) and (c) run fused (the default) and staged."""
     import numpy as np
     import torch
+    from scanner_tpu_torch.graph import fusion
     from scanner_tpu_torch.kernels import cuda_ops, shot
     db_path = os.path.join(work, "golden_db")
     gpu = st.Client(db_path=db_path, device="cuda")
@@ -920,29 +983,55 @@ def golden(st, work: str, seed: int) -> dict:
         col = client.ops.Histogram(frame=col)
         return col if what == "b" else client.ops.HistDiff(frame=col)
 
-    def run(client, dev):
-        for what in ("a", "b", "c", "crop", "flow"):
+    def run(client, dev, whats):
+        for what in whats:
             t0 = time.time()
-            client.run(client.io.Output(graph(client, what), [
+            job = client.run(client.io.Output(graph(client, what), [
                 st.NamedStream(client, f"{what}_{dev}")]),
                 st.PerfParams.manual(8, 16), show_progress=False,
                 cache_mode=st.CacheMode.Overwrite)
             secs[(what, dev)] = time.time() - t0
+            spans[(what, dev)] = {
+                k: round(v["total_s"], 4) for k, v in
+                client.get_profile(job).statistics().items()
+                if k in ("load", "evaluate", "save")
+                or k.startswith("evaluate:")}
 
-    secs = {}
+    secs, spans = {}, {}
     cuda_ops.reset_counts()
-    run(gpu, "cuda")
+    captures0, replays0 = graph_counts()
+    run(gpu, "cuda", ("a", "b", "c", "crop", "flow"))
+    captures, replays = graph_counts()
+    captures, replays = captures - captures0, replays - replays0
+    replay_launches = cuda_ops.histogram_replay_launches
+    fusion.set_enabled(False)
+    try:
+        run(gpu, "cuda_staged", ("a", "b", "c"))
+    finally:
+        fusion.set_enabled(True)
     launches = cuda_ops.histogram_launches
     ids = cuda_ops.histogram_ids_launches
     # the CPU client opens the database once the card's runs are in it
     cpu = st.Client(db_path=db_path, device="cpu")
-    run(cpu, "cpu")
+    run(cpu, "cpu", ("a", "b", "c", "crop", "flow"))
     check(ids > 0 and launches - ids > 0,
           f"[golden]: the histogram kernel launched {launches - ids} times "
           f"through the frame entry and {ids} through the id entry")
+    check(replay_launches > 0 and replays > 0,
+          f"[golden]: {replays} graph replays launched the histogram "
+          f"kernel {replay_launches} times")
     get = {k: rows_of(cpu, st, f"{k[0]}_{k[1]}") for k in secs}
+    for what in ("a", "b", "c"):
+        check(same_bytes(get[(what, "cuda")], get[(what, "cuda_staged")]),
+              f"[golden] ({what}): the fused rows on the card differ from "
+              f"the staged rows")
     out = dict(frames=GOLDEN_FRAMES, geometry=f"{W}x{H}",
-               histogram_launches=launches, ids_launches=ids)
+               histogram_launches=launches, ids_launches=ids,
+               chains_planned=json.dumps(sorted(series_sum(
+                   "scanner_tpu_fusion_chains_planned"))),
+               graphs_captured=captures, graph_replays=replays,
+               histogram_replay_launches=replay_launches,
+               fused_rows_identical_to_staged=True)
     for what in ("a", "crop"):
         a = np.stack(get[(what, "cuda")]).astype(np.int32)
         b = np.stack(get[(what, "cpu")]).astype(np.int32)
@@ -976,8 +1065,116 @@ def golden(st, work: str, seed: int) -> dict:
     out["histdiff_nonzero_rows"] = int(sum(x != 0 for x in diff))
     for what in ("a", "b", "c", "crop", "flow"):
         out[f"{what}_fps"] = GOLDEN_FRAMES / secs[(what, "cuda")]
+        if (what, "cuda_staged") in secs:
+            out[f"{what}_staged_fps"] = \
+                GOLDEN_FRAMES / secs[(what, "cuda_staged")]
+            out[f"{what}_stage_s"] = json.dumps(spans[(what, "cuda")],
+                                                sort_keys=True)
+            out[f"{what}_staged_stage_s"] = json.dumps(
+                spans[(what, "cuda_staged")], sort_keys=True)
         out[f"{what}_cpu_fps"] = GOLDEN_FRAMES / secs[(what, "cpu")]
     return out
+
+
+def ledgers(client, ops, after: str) -> dict:
+    """[ledgers]: the memory ledger's live and watermark bytes on the card
+    by buffer kind beside the allocator's own peak, the compile ledger,
+    and the roofline rows of `ops` on the card (each must have one).  A
+    roofline efficiency above 1.05 fails: the cost counted or the time
+    measured would be wrong."""
+    import torch
+    mem = client.memory_report()["memory"]
+    live, peak = {}, {}
+    for r in mem["ledger"]:
+        if r["device"].startswith("cuda"):
+            live[r["kind"]] = live.get(r["kind"], 0) + r["live_bytes"]
+            peak[r["kind"]] = peak.get(r["kind"], 0) + r["peak_bytes"]
+    rep = client.compile_report()["nodes"]["client"]
+    rows = [r for r in rep["op_efficiency"] if r["device"].startswith("cuda")]
+    worst = max(rows, key=lambda r: r["efficiency"], default=None)
+    check(worst is None or worst["efficiency"] <= 1.05,
+          f"[ledgers] {worst and worst['op']} at bucket "
+          f"{worst and worst['bucket']} reads roofline efficiency "
+          f"{worst and worst['efficiency']} > 1.05")
+    missing = [op for op in ops if not any(r["op"] == op for r in rows)]
+    check(not missing, f"[ledgers] no roofline row on the card for "
+                       f"{missing}")
+    return dict(
+        after=after,
+        ledger_live_bytes=json.dumps(live, sort_keys=True),
+        ledger_watermark_bytes=json.dumps(peak, sort_keys=True),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        allocator=json.dumps(mem["devices"], sort_keys=True),
+        compile_entries=json.dumps([
+            {k: e[k] for k in ("op", "bucket", "signature", "kinds",
+                               "cache", "compile_s", "members")
+             if k in e} for e in rep["ledger"]]),
+        compile_summary=json.dumps(rep["summary"], sort_keys=True),
+        roofline=json.dumps([
+            {k: r[k] for k in ("op", "bucket", "calls", "rows", "seconds",
+                               "bytes_per_s", "flops_per_s", "bound",
+                               "efficiency")}
+            for r in rows if r["op"] in ops]),
+        max_efficiency=worst and worst["efficiency"])
+
+
+def warmup(st, work: str, seed: int) -> dict:
+    """[warmup]: the golden (b) graph, resized to a quarter so that no
+    graph of [golden] serves it (chain graphs are kept per process),
+    through an executor whose evaluator gets precompile=(H, W, 8) —
+    what a video source's geometry would give it — over 32 stored
+    frames.  The warm-up must capture the chain's graph at every rung of
+    its ladder, and the first real call must capture none."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.engine.evaluate import bucket_ladder
+    from scanner_tpu_torch.engine.executor import LocalExecutor
+    from scanner_tpu_torch.util import coststats
+    from scanner_tpu_torch.util.profiler import Profiler
+
+    class WarmExecutor(LocalExecutor):
+        @staticmethod
+        def precompile_hint(jobs):
+            return (H, W, 8)
+
+    chain, n = "Resize+Blur+Histogram", 32
+    gpu = st.Client(db_path=os.path.join(work, "warm_db"), device="cuda")
+    gpu.new_table("warm", ["frame"], [[f] for f in make_frames(n, seed + 3)],
+                  codecs={"frame": "pickle"})
+    src = gpu.io.Input([st.NamedStream(gpu, "warm")])
+    col = gpu.ops.Histogram(frame=gpu.ops.Blur(frame=gpu.ops.Resize(
+        frame=src, width=[W // 4], height=[H // 4]), kernel_size=3,
+        sigma=1.1))
+    seen = coststats.ledger_summary()["entries_seen"]
+    captures0, replays0 = graph_counts()
+    ex = WarmExecutor(gpu._db, Profiler(),
+                      torch.device("cuda", torch.cuda.current_device()))
+    t0 = time.time()
+    ex.run([gpu.io.Output(col, [st.NamedStream(gpu, "warm_b")])],
+           st.PerfParams.manual(8, 16), cache_mode=st.CacheMode.Overwrite)
+    wall = time.time() - t0
+    captures, replays = graph_counts()
+    entries = [e for e in coststats.compile_ledger()
+               if e["seq"] > seen and e["op"] == chain]
+    ladder = bucket_ladder(8)
+    warmed = sorted(e["bucket"] for e in entries
+                    if e["signature"].startswith("warmup:")
+                    and "graph" in e["kinds"])
+    later = [e for e in entries if not e["signature"].startswith("warmup:")]
+    check(warmed == ladder, f"[warmup] the warm-up captured the chain at "
+                            f"buckets {warmed}, not at every rung {ladder}")
+    check(not later, f"[warmup] a real call captured: {later}")
+    check(captures - captures0 == len(ladder),
+          f"[warmup] {captures - captures0} captures for a ladder of "
+          f"{len(ladder)}")
+    rows = np.stack(rows_of(gpu, st, "warm_b"))
+    check(rows.shape == (n, C, BINS) and bool(
+        (rows.sum(axis=2) == (H // 4) * (W // 4)).all()),
+        f"[warmup] rows {rows.shape} are not one count per pixel")
+    return dict(ladder=json.dumps(ladder), captured_by_warmup=json.dumps(
+        warmed), capture_s=json.dumps([e["compile_s"] for e in entries]),
+        first_call_captures=len(later), graph_replays=replays - replays0,
+        wall_s=wall)
 
 
 # the main path's instance of the histogram kernel (C = 3, 16 bins)
@@ -1188,6 +1385,7 @@ def main() -> int:
         gpu.new_table("frames", ["frame"], [[f] for f in frames],
                       codecs={"frame": "pickle"})
         secs, stages, launches = {}, {}, {}
+        torch.cuda.reset_peak_memory_stats()
         for cfg in (1, 2, "shot"):
             cuda_ops.reset_counts()
             secs[cfg], stages[cfg] = run_config(gpu, st, cfg,
@@ -1195,6 +1393,8 @@ def main() -> int:
             launches[cfg] = cuda_ops.histogram_launches
             check(launches[cfg] > 0,
                   f"config {cfg}: the histogram kernel never launched")
+        phase("ledgers", **ledgers(gpu, ("Histogram", "HistDiff"),
+                                   "configs 1, 2, shot"), card=repr(card))
         cpu = st.Client(db_path=db_path, device="cpu")
         for cfg in (1, 2, "shot"):
             run_config(cpu, st, cfg, f"config{cfg}_cpu")
@@ -1238,6 +1438,11 @@ def main() -> int:
               card=repr(card))
         gold = golden(st, work, args.seed)
         phase("golden", **gold, card=repr(card))
+        phase("ledgers", **ledgers(gpu, ("Resize", "Blur", "Histogram",
+                                         "Resize+Blur",
+                                         "Resize+Blur+Histogram"),
+                                   "golden"), card=repr(card))
+        phase("warmup", **warmup(st, work, args.seed), card=repr(card))
 
         # -- timings at the main path's shape -------------------------
         x = torch.from_numpy(frames[:16]).to(dev)

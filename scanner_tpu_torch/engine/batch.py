@@ -30,6 +30,7 @@ import torch
 
 from ..common import NullElement
 from ..util import faults as _faults
+from ..util import memstats as _ms
 from ..util import metrics as _mx
 
 Elem = Any
@@ -53,22 +54,31 @@ _M_D2H_SECONDS = _mx.registry().counter(
     "Seconds spent blocking on device->host fetches.")
 
 
-def staged_device_put(host: "np.ndarray", device, fault_detail: str
-                      ) -> torch.Tensor:
+def staged_device_put(host: "np.ndarray", device, kind: str,
+                      fault_detail: str) -> torch.Tensor:
     """The ONE engine host->device staging contract: the memory.pressure
-    fault site and the shared h2d byte/second meters around one copy of
-    `host` into pinned memory and an asynchronous (non_blocking) copy of
-    that onto `device`.  PyTorch's pinned-memory allocator keeps the
-    pinned buffer alive until the copy on the current stream is done."""
+    fault site, out-of-memory forensics (site=staging), the shared h2d
+    byte/second meters and an allocation-ledger registration under
+    `kind`, around one copy of `host` into pinned memory and an
+    asynchronous (non_blocking) copy of that onto `device`.  PyTorch's
+    pinned-memory allocator keeps the pinned buffer alive until the copy
+    on the current stream is done."""
     t0 = time.time()
-    if _faults.ACTIVE:
-        _faults.inject("memory.pressure", detail=fault_detail)
-    src = torch.from_numpy(np.ascontiguousarray(host))
-    if device.type == "cuda":
-        src = src.pin_memory()
-    data = src.to(device, non_blocking=True)
+    try:
+        if _faults.ACTIVE:
+            _faults.inject("memory.pressure", detail=fault_detail)
+        src = torch.from_numpy(np.ascontiguousarray(host))
+        if device.type == "cuda":
+            src = src.pin_memory()
+        data = src.to(device, non_blocking=True)
+    except Exception as e:
+        if _ms.is_oom(e):
+            _ms.note_oom(e, site="staging",
+                         detail=f"h2d {host.nbytes} bytes -> {device}")
+        raise
     _M_H2D_SECONDS.inc(time.time() - t0)
     _M_H2D_BYTES.inc(host.nbytes)
+    _ms.track_array(data, kind)
     return data
 
 
@@ -250,13 +260,21 @@ class ColumnBatch:
         on device via converted())."""
         if isinstance(self.data, np.ndarray):
             data = staged_device_put(
-                self.data, device,
+                self.data, device, "staging",
                 fault_detail=f"h2d:{device}:{self.data.nbytes}")
             return ColumnBatch(self.rows, data,
                                self.nulls, convert=self.convert)
         if _is_tensor(self.data) and self.data.device != device:
-            return ColumnBatch(self.rows,
-                               self.data.to(device, non_blocking=True),
+            try:
+                data = self.data.to(device, non_blocking=True)
+            except Exception as e:
+                if _ms.is_oom(e):
+                    _ms.note_oom(e, site="staging",
+                                 detail=f"cross-device re-stage -> "
+                                        f"{device}")
+                raise
+            _ms.track_array(data, "staging")
+            return ColumnBatch(self.rows, data,
                                self.nulls, convert=self.convert)
         return self
 
@@ -269,6 +287,9 @@ class ColumnBatch:
         event.  No-op for host data and CPU tensors."""
         if _is_tensor(self.data) and self.data.device.type == "cuda" \
                 and self._pending is None:
+            # the sink batch holds device memory until the saver's
+            # fetch: account it so pre-fetch pressure has an owner
+            _ms.track_array(self.data, "sink")
             host = torch.empty(self.data.shape, dtype=self.data.dtype,
                                pin_memory=True)
             host.copy_(self.data, non_blocking=True)

@@ -136,6 +136,24 @@ class Client:
         from ..util.metrics import merge_snapshots, registry
         return merge_snapshots({"client": registry().snapshot()})
 
+    def memory_report(self) -> Dict[str, Any]:
+        """Memory forensics (util/memstats.py): this process's live
+        device-memory and allocation-ledger view, and its last
+        out-of-memory report, if any (the JAX package's local form)."""
+        from ..util import memstats
+        last = memstats.last_report()
+        return {"memory": memstats.status_dict(),
+                "reports": [last] if last else []}
+
+    def compile_report(self) -> Dict[str, Any]:
+        """Compute-efficiency report (util/coststats.py): this process's
+        compile ledger (op, device, bucket, library builds and CUDA
+        graph captures with their seconds), its summary, and the
+        per-(op, device, bucket) roofline table, under
+        nodes["client"] (the JAX package's local form)."""
+        from ..util import coststats
+        return {"nodes": {"client": coststats.compile_report()}}
+
     # -- data management ----------------------------------------------------
 
     def ingest_videos(self, named_paths: Sequence, inplace: bool = False,

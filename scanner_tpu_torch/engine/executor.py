@@ -524,7 +524,8 @@ class LocalExecutor:
             if work:
                 self._run_pipeline(
                     info, work, show_progress,
-                    queue_size=int(perf.queue_size_per_pipeline))
+                    queue_size=int(perf.queue_size_per_pipeline),
+                    precompile=self.precompile_hint(jobs))
         finally:
             _tr.close_span(self.tracer, root)
         for job in jobs:
@@ -535,9 +536,28 @@ class LocalExecutor:
         self.db.write_megafile()
         return jobs
 
+    @staticmethod
+    def precompile_hint(jobs: List[JobContext]
+                        ) -> Optional[Tuple[int, int, int]]:
+        """(frame_h, frame_w, work_packet_size) for the evaluator's
+        bucket-ladder warm-up (evaluate.py precompile), from the first
+        non-skipped job with a video source — the geometry the device
+        kernels will actually see.  None = nothing to warm."""
+        for job in jobs:
+            if getattr(job, "skipped", False):
+                continue
+            for si in job.source_info.values():
+                vm = si.get("video_meta")
+                if vm is not None and vm.height and vm.width:
+                    wp = int(getattr(job.jr, "work_packet_size", 0) or 0)
+                    return (int(vm.height), int(vm.width), wp)
+        return None
+
     def _run_pipeline(self, info: A.GraphInfo, work: List[TaskItem],
                       show_progress: bool,
-                      queue_size: Optional[int] = None) -> None:
+                      queue_size: Optional[int] = None,
+                      precompile: Optional[Tuple[int, int, int]] = None
+                      ) -> None:
         pending = list(work)
         src_lock = threading.Lock()
 
@@ -546,18 +566,22 @@ class LocalExecutor:
                 return pending.pop(0) if pending else None
 
         done = self.run_pipeline(info, source, show_progress=show_progress,
-                                 total=len(work), queue_size=queue_size)
+                                 total=len(work), queue_size=queue_size,
+                                 precompile=precompile)
         if done != len(work):
             raise JobException(
                 f"pipeline finished {done}/{len(work)} tasks")
 
     def run_pipeline(self, info: A.GraphInfo, source,
                      queue_size: Optional[int] = None,
-                     show_progress: bool = False, total: int = 0) -> int:
+                     show_progress: bool = False, total: int = 0,
+                     precompile: Optional[Tuple[int, int, int]] = None
+                     ) -> int:
         """Multi-stage streaming pipeline (reference worker.cpp:1467-1724
         load/evaluate/save stage loops): N loaders pull TaskItems from
         `source` and decode, P evaluator instances execute, S savers
-        persist.
+        persist.  `precompile` is the evaluators' ladder warm-up hint
+        (precompile_hint).
 
         source() -> TaskItem | None (exhausted); called concurrently from
         loader threads.  Returns the number of tasks fully saved."""
@@ -697,6 +721,7 @@ class LocalExecutor:
             return TaskEvaluator(info, self.profiler, self.device,
                                  stage=self.stage,
                                  skip_fetch_resources=skip_fetch,
+                                 precompile=precompile,
                                  instance=idx)
 
         def evaluator(evaluator_idx: int):

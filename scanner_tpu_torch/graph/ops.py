@@ -59,17 +59,45 @@ class Kernel:
         raise NotImplementedError
 
     def execute_traced(self, *cols):
-        """Tensor-in, tensor-out core of ``execute()`` (the JAX package
-        composes these into fused programs; whole-pipeline fusion is not
-        ported, so here it is only a kernel's own split between device
-        work and the host tail in ``finish()``).  Defaults to
-        ``execute()``."""
+        """Tensor-in, tensor-out core of ``execute()`` for whole-pipeline
+        fusion (graph/fusion.py + engine/evaluate.py FusedKernelInstance):
+        the engine composes consecutive members' ``execute_traced``
+        bodies head to tail and, on a card, captures the composition as
+        one CUDA graph per bucket.  So this must take and return tensors
+        on the input's device, launch its work on the current stream,
+        and stay free of host syncs and uploads from pageable memory
+        after its first call at a shape (no per-row python results, no
+        ``.cpu()``).  The default delegates to ``execute()`` — right for
+        kernels whose execute body is already tensor code; kernels with
+        a host-side tail (e.g. a float-list conversion) override this
+        with the device core and put the conversion in ``finish()``."""
         return self.execute(*cols)
 
     def finish(self, result):
-        """Host-side tail conversion of an ``execute_traced`` result
-        (identity by default)."""
+        """Host-side tail conversion applied to the chain-tail kernel's
+        ``execute_traced`` result outside the fused call, restoring the
+        exact ``execute()`` result protocol (identity by default)."""
         return result
+
+    def precompile_input(self, name: str):
+        """Optional warm-up hook for the engine's bucket-ladder
+        precompile (engine/evaluate.py): return one example row for the
+        non-frame input column `name` (frame columns are synthesized by
+        the engine), or None to opt this op out of generic warm-up.
+        The example only needs the right shape/dtype — warm-up results
+        are discarded."""
+        return None
+
+    def cost(self, shapes):
+        """Optional analytical cost descriptor for ONE execute() call
+        (the roofline-attribution hook, util/coststats.py): `shapes`
+        holds one entry per positional input — the array shape tuple
+        for array inputs, the element count for per-row lists.  Return
+        a `coststats.CostDescriptor` (or a dict with `flops` /
+        `bytes_in` / `bytes_out` keys), or None to fall back to the
+        observed argument bytes.  Declaring it also makes the op
+        fusable (graph/fusion.py)."""
+        return None
 
     def close(self) -> None:
         pass

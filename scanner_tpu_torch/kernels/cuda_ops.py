@@ -17,19 +17,28 @@ Kernel sources live in `scanner_tpu_torch/csrc/`, are compiled with nvcc
 for sm_90a into a shared library with a plain C interface at first use
 (scanner_tpu_torch/native.py), and are called through ctypes on
 PyTorch's current stream.
+
+A wrapper called while a CUDA graph is being captured (the evaluator's
+fused chains, engine/evaluate.py) records its kernel into the graph
+instead of launching it: `capture_launches` tallies those launches on
+the capturing thread, and `count_replay` adds them to the counters each
+time the graph is replayed, which is when the kernel runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
 import shutil
 import threading
+import time
 
 import torch
 
 from .. import native
+from ..util import coststats as _cs
 
 MAX_BINS = 128
 MAX_CHANNELS = 4  # csrc/histogram.cu kMaxChannels
@@ -37,14 +46,19 @@ MAX_CHANNELS = 4  # csrc/histogram.cu kMaxChannels
 MIN_BLOCK_BYTES = 16384
 
 # launches of the histogram kernel (csrc/histogram.cu) in this process,
-# through either entry, and of those through the id entry (histogram_ids)
+# through either entry, of those through the id entry (histogram_ids),
+# and of those by replays of CUDA graphs that hold it
 histogram_launches = 0
 histogram_ids_launches = 0
+histogram_replay_launches = 0
 
 _SRC = os.path.join(native.PKG_DIR, "csrc", "histogram.cu")
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+# per thread: the [launches, id launches] tally of the CUDA graph this
+# thread is capturing, or None
+_capture = threading.local()
 # the most blocks (one thread-block cluster) that share a row
 MAX_CLUSTER = 16  # csrc/histogram.cu kMaxCluster
 # per card index: caps[k - 1], how many clusters of k blocks the card
@@ -53,8 +67,35 @@ _cards = {}
 
 
 def reset_counts() -> None:
-    global histogram_launches, histogram_ids_launches
+    global histogram_launches, histogram_ids_launches, \
+        histogram_replay_launches
     histogram_launches = histogram_ids_launches = 0
+    histogram_replay_launches = 0
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a CUDA graph capture on this thread: the wrappers record
+    their kernels into the graph without counting them; yields the
+    [launches, id launches] tally that one replay of the graph makes."""
+    tally = [0, 0]
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
+def count_replay(tally) -> None:
+    """Count the launches one replay of a captured graph makes (its
+    `capture_launches` tally)."""
+    global histogram_launches, histogram_ids_launches, \
+        histogram_replay_launches
+    with _count_lock:
+        histogram_launches += tally[0]
+        histogram_ids_launches += tally[1]
+        histogram_replay_launches += tally[0]
 
 
 def nvcc_path() -> str:
@@ -90,13 +131,20 @@ def bind_library(path: str):
 
 
 def load_library():
-    """Build (first use only) and load the histogram kernel library."""
+    """Build (first use only) and load the histogram kernel library.  The
+    first load is a compile in the compile ledger (util/coststats.py):
+    "hit" when the library was already built, "uncached" when nvcc ran."""
     global _lib
     if _lib is None:
         with _lib_lock:
             if _lib is None:
-                _lib = bind_library(build_kernel_library(
-                    "libscanner_hist.so", _SRC))
+                t0 = time.time()
+                path = build_kernel_library("libscanner_hist.so", _SRC)
+                _lib = bind_library(path)
+                built = native.build_seconds.get("libscanner_hist.so", 0.0)
+                _cs.note_compile(time.time() - t0,
+                                 "uncached" if built else "hit", "library",
+                                 os.path.getsize(path))
     return _lib
 
 
@@ -193,6 +241,11 @@ def _launch(fn, t: torch.Tensor, rows: int, n: int, shape, *args,
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error "
                            f"{err}")
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:   # recorded into a graph: counted at replay
+        tally[0] += 1
+        tally[1] += ids
+        return out
     with _count_lock:
         histogram_launches += 1
         histogram_ids_launches += ids

@@ -14,8 +14,9 @@ Histogram runs the hand-written CUDA kernel on the card.  The resamplers
 and the flow solver are plain torch, as the JAX package left them to XLA
 in plain jnp: each keeps the JAX package's arithmetic (tap order, edge
 handling, float32 throughout, round half to even) so both packages agree
-within one uint8 count.  Their cost models (`cost()`) and precompile
-inputs are not ported yet.
+within one uint8 count.  Each op's `cost()` gives the JAX package's
+analytical descriptor for the same shapes (the roofline ledger,
+util/coststats.py, and the fusion planner read it).
 """
 
 from __future__ import annotations
@@ -29,9 +30,19 @@ import torch.nn.functional as F
 
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
+from ..util.coststats import CostDescriptor
 from . import cuda_ops
 
 HISTOGRAM_BINS = 16
+
+
+def _frame_shape(shapes, idx: int = 0):
+    """The idx-th input's array shape, or None when the engine handed a
+    per-row list (host path): a cost hook then declares nothing rather
+    than guess."""
+    if idx < len(shapes) and isinstance(shapes[idx], tuple):
+        return shapes[idx]
+    return None
 
 
 def histogram_np(frames: np.ndarray) -> np.ndarray:
@@ -48,25 +59,73 @@ def histogram_np(frames: np.ndarray) -> np.ndarray:
     return out
 
 
+def _bin_ids(x: torch.Tensor) -> torch.Tensor:
+    """(n, ..., C) integer values -> (n * C, P) int32 bin ids with the
+    JAX package's `_histogram_impl` rules: bin = (v * 16) // 256 in
+    int32, below 0 clamped to bin 0 (jnp.bincount clips negatives), 16 or
+    more mapped to the padding id 16, which counts nowhere."""
+    n, c = x.shape[0], x.shape[-1]
+    v = ((x.to(torch.int32) * HISTOGRAM_BINS) >> 8).clamp_(0, HISTOGRAM_BINS)
+    return v.reshape(n, -1, c).transpose(1, 2).reshape(n * c, -1) \
+        .contiguous()
+
+
 def histogram(frames) -> Any:
-    """(batch, H, W, C) uint8 -> (batch, C, 16) int32, where the frames
-    live: a CUDA tensor launches the histogram kernel
-    (cuda_ops.histogram_frames), a CPU tensor takes its plain version,
-    a numpy array the numpy flavor."""
+    """(n, ..., C) integer values -> (n, C, 16) int32 counts of each
+    channel (the trailing axis), bin = (v * 16) // 256, computed where
+    the values live.  uint8 (n, H, W, C) frames with 1 <= C <=
+    cuda_ops.MAX_CHANNELS take the kernel's frame entry
+    (cuda_ops.histogram_frames); every other integer batch — int32
+    frames, more channels, a window of Histogram rows — takes its id
+    entry (cuda_ops.histogram_ids) over `_bin_ids`.  A CPU tensor takes
+    the plain versions; a numpy batch gets numpy counts (uint8 frames by
+    the numpy flavor, histogram_np)."""
     if isinstance(frames, np.ndarray):
-        return histogram_np(frames)
-    return cuda_ops.histogram_frames(frames, HISTOGRAM_BINS)
+        if frames.ndim == 4 and frames.dtype == np.uint8:
+            return histogram_np(frames)
+        return histogram(torch.from_numpy(np.ascontiguousarray(frames))) \
+            .numpy()
+    n, c = frames.shape[0], frames.shape[-1]
+    if frames.ndim == 4 and frames.dtype == torch.uint8 \
+            and 1 <= c <= cuda_ops.MAX_CHANNELS:
+        return cuda_ops.histogram_frames(
+            frames if frames.is_contiguous() else frames.contiguous(),
+            HISTOGRAM_BINS)
+    return cuda_ops.histogram_ids(_bin_ids(frames), HISTOGRAM_BINS).reshape(
+        n, c, HISTOGRAM_BINS)
 
 
 @register_op(device=DeviceType.TPU, batch=16)
 class Histogram(Kernel):
     """Per-channel 16-bin color histogram; each stored row is a (C, 16)
     int32 array, row[c] being channel c's histogram (scannertools
-    parity: UniformList(Histogram, parts=3))."""
+    parity: UniformList(Histogram, parts=3)).  Any integer (B, H, W, C)
+    frames, as the JAX op bins them."""
+
+    def cost(self, shapes):
+        """Compare+reduce histogram (the JAX package's model): per
+        pixel-channel, one fixed-point binning (2 ops) plus `bins`
+        compares and `bins` accumulates.  Reads the uint8 frames once,
+        writes (b, C, bins) int32."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) != 4:
+            return None
+        b, h, w, c = s
+        px = b * h * w * c
+        return CostDescriptor(
+            flops=float(px * (HISTOGRAM_BINS + 2)),
+            bytes_in=float(px),
+            bytes_out=float(b * c * HISTOGRAM_BINS * 4))
+
+    def execute_traced(self, frame):
+        """Tensor in, (batch, C, bins) int32 tensor out, where the
+        tensor lies: the fused chain's tail (engine/evaluate.py)."""
+        return histogram(torch.as_tensor(frame))
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """Returns the (batch, C, bins) int32 counts as ONE batch, left
-        on the device: the sink fetches once per task."""
+        on the device: the sink fetches once per task.  A numpy batch
+        (or a list of frames) gets numpy counts."""
         if not isinstance(frame, (np.ndarray, torch.Tensor)):
             frame = np.stack(frame)
         return histogram(frame)
@@ -108,11 +167,13 @@ def _resize_band(in_size: int, out_size: int):
     return taps, tw, k
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _band_on(in_size: int, out_size: int, device: torch.device):
     """_resize_band's taps and weights as tensors on `device`, one per
     tap: [(index (out,), weight (out,))], made once per geometry and
-    device so a call uploads nothing."""
+    device so a call uploads nothing.  Never evicted: a fused chain's
+    CUDA graph (engine/evaluate.py) reads them by address for the life
+    of the process."""
     taps, tw, k = _resize_band(in_size, out_size)
     return [(torch.from_numpy(np.ascontiguousarray(taps[:, j])).to(device),
              torch.from_numpy(np.ascontiguousarray(tw[:, j])).to(device))
@@ -148,6 +209,19 @@ class Resize(Kernel):
             self.width = int(width)
         if height is not None:
             self.height = int(height)
+
+    def cost(self, shapes):
+        """Separable bilinear resample: 4 taps (mul+add) per output
+        pixel-channel = 8 flops.  Reads the source frames, writes the
+        (b, H, W, c) uint8 result."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) != 4 or not (self.height and self.width):
+            return None
+        b, h, w, c = s
+        out_px = b * self.height * self.width * c
+        return CostDescriptor(flops=float(out_px * 8),
+                              bytes_in=float(b * h * w * c),
+                              bytes_out=float(out_px))
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
@@ -220,6 +294,27 @@ class CropResize(Kernel):
         self.height = int(height) or int(size)
         self.width = int(width) or int(size)
 
+    def precompile_input(self, name: str):
+        # boxes are unit coords, so a full-frame box warms the exact
+        # call shapes the real calls hit (engine bucket-ladder warm-up)
+        if name == "box":
+            return np.asarray([0.0, 0.0, 1.0, 1.0], np.float32)
+        return None
+
+    def cost(self, shapes):
+        """Crop + bilinear resample to (height, width): like Resize, 4
+        taps (mul+add) per output pixel-channel = 8 flops; the per-box
+        scale/translate arithmetic is O(b) and ignored.  Reads the
+        frames and the (b, 4) float32 boxes, writes the crops."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) != 4:
+            return None
+        b, h, w, c = s
+        out_px = b * self.height * self.width * c
+        return CostDescriptor(flops=float(out_px * 8),
+                              bytes_in=float(b * h * w * c + b * 4 * 4),
+                              bytes_out=float(out_px))
+
     def execute(self, frame: Sequence[FrameType],
                 box: Sequence[Any]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
@@ -271,6 +366,18 @@ class Blur(Kernel):
         self.ksize = int(kernel_size) | 1  # odd
         self.kern = [float(v) for v in
                      _gaussian_kernel1d(self.ksize, float(sigma))]
+
+    def cost(self, shapes):
+        """Separable gaussian: two 1-D passes of `ksize` taps each —
+        2 * ksize * 2 flops per pixel-channel.  uint8 in, uint8 out,
+        same geometry."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) != 4:
+            return None
+        b, h, w, c = s
+        px = b * h * w * c
+        return CostDescriptor(flops=float(px * 4 * self.ksize),
+                              bytes_in=float(px), bytes_out=float(px))
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
@@ -335,6 +442,22 @@ class OpticalFlow(Kernel):
     scannertools OpticalFlow / test_ops.cpp:63, StenciledKernel).  Output
     per row: float32 (H, W, 2) flow from the previous frame to the
     current."""
+
+    def cost(self, shapes):
+        """Horn-Schunck: grayscale both frames (~5 flops/px each),
+        gradients (~6/px), then HS_ITERS solver iterations of two 3x3
+        averages (36 flops/px) plus ~12 arithmetic ops/px.  Reads the
+        (b, 2, H, W, C) uint8 stencil window, writes (b, H, W, 2)
+        float32 flow."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) != 5:
+            return None
+        b, win, h, w, c = s
+        px = b * h * w
+        flops = px * (win * 5 + 6 + HS_ITERS * (36 + 12))
+        return CostDescriptor(flops=float(flops),
+                              bytes_in=float(b * win * h * w * c),
+                              bytes_out=float(px * 2 * 4))
 
     def execute(self, frame: Sequence[Sequence[FrameType]]
                 ) -> Sequence[FrameType]:

@@ -15,36 +15,8 @@ import torch
 
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
-from . import cuda_ops
-from .imgproc import HISTOGRAM_BINS, histogram
-
-
-def _window_ids(x: torch.Tensor) -> torch.Tensor:
-    """(n, ..., C) integer values -> (n * C, P) int32 bin ids with the
-    JAX package's `_histogram_impl` rules: bin = (v * 16) // 256 in
-    int32, below 0 clamped to bin 0 (jnp.bincount clips negatives), 16 or
-    more mapped to the padding id 16, which counts nowhere."""
-    n, c = x.shape[0], x.shape[-1]
-    v = ((x.to(torch.int32) * HISTOGRAM_BINS) >> 8).clamp_(0, HISTOGRAM_BINS)
-    return v.reshape(n, -1, c).transpose(1, 2).reshape(n * c, -1) \
-        .contiguous()
-
-
-def window_histograms(x):
-    """(n, ..., C) window members -> (n, C, 16) counts, computed where
-    they live.  uint8 (n, H, W, C) frames with C <= 4 take `histogram`
-    (the CUDA kernel's frame entry on the card); any other integer
-    window takes the kernel's id entry (cuda_ops.histogram_ids) on the
-    card, and the plain versions of both on the CPU and in numpy."""
-    n, c = x.shape[0], x.shape[-1]
-    u8 = torch.uint8 if isinstance(x, torch.Tensor) else np.uint8
-    if x.ndim == 4 and 1 <= c <= cuda_ops.MAX_CHANNELS and x.dtype == u8:
-        return histogram(x.contiguous() if isinstance(x, torch.Tensor)
-                         else x)
-    counts = cuda_ops.histogram_ids(
-        _window_ids(torch.as_tensor(x)), HISTOGRAM_BINS).reshape(
-        n, c, HISTOGRAM_BINS)
-    return counts.numpy() if isinstance(x, np.ndarray) else counts
+from ..util.coststats import CostDescriptor
+from .imgproc import HISTOGRAM_BINS, _frame_shape, histogram
 
 
 @register_op(device=DeviceType.TPU, stencil=[-1, 0], batch=16)
@@ -57,11 +29,29 @@ class HistDiff(Kernel):
     reuses each histogram, and the stencil data shrinks from full frames to
     3x16 ints."""
 
+    def cost(self, shapes):
+        """Two histograms over the (b, 2, ...) stencil window (bins+2
+        flops per input element, the Histogram model) plus the per-row
+        L1 over 2 * C * bins histogram cells, where C is the trailing
+        channel axis.  Reads the window once, emits one float per row
+        (the JAX package's model, for the classic (b, 2, H, W, C) frame
+        window and for any array window, e.g. Histogram rows)."""
+        s = _frame_shape(shapes)
+        if s is None or len(s) < 3:
+            return None
+        b, c = s[0], s[-1]
+        px = 1
+        for d in s:
+            px *= d
+        flops = px * (HISTOGRAM_BINS + 2) + b * 2 * c * HISTOGRAM_BINS
+        return CostDescriptor(flops=float(flops), bytes_in=float(px),
+                              bytes_out=float(b * 8))
+
     def execute_traced(self, frame):
         """(batch, 2, ..., C) integer window in, (batch,) float32 L1
         distances out, as the JAX package computes them: the trailing
         axis is the channel axis and each member's values are binned by
-        (v * 16) // 256 (`window_histograms`), so a window of uint8
+        (v * 16) // 256 (imgproc.histogram), so a window of uint8
         frames gives colour histograms and a window of Histogram rows
         (batch, 2, 3, 16) bins the counts themselves.  Both members'
         histograms come from one histogram call where the window lives.
@@ -69,7 +59,7 @@ class HistDiff(Kernel):
         exact and the host conversion in finish() is bit-stable."""
         b, c = frame.shape[0], frame.shape[-1]
         flat = frame.reshape((2 * b,) + tuple(frame.shape[2:]))
-        h = torch.as_tensor(window_histograms(flat)).to(
+        h = torch.as_tensor(histogram(flat)).to(
             torch.float32).reshape(b, 2, c, HISTOGRAM_BINS)
         return (h[:, 0] - h[:, 1]).abs().sum(dim=(1, 2))
 

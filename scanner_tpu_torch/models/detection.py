@@ -204,6 +204,11 @@ class ObjectDetect(Kernel):
         self._dp = DataParallelApply(AnchoredModel(net, score_thresh),
                                      config.devices)
 
+    def infer_cost_flops(self, batch):
+        """FLOPs of one inference call on `batch` (the MFU probe,
+        DataParallelApply.cost_flops); None when none are counted."""
+        return self._dp.cost_flops(batch)
+
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """(B, top_k, 6) float32 per batch: a tensor left on the card
         when the frames came as a CUDA tensor (the sink fetches once per

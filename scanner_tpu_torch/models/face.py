@@ -80,6 +80,11 @@ class FaceEmbedding(Kernel):
         load_weights(net, shipped, checkpoint_dir, seed, "FaceEmbedding")
         self._dp = DataParallelApply(net, config.devices)
 
+    def infer_cost_flops(self, batch):
+        """FLOPs of one inference call on `batch` (the MFU probe,
+        DataParallelApply.cost_flops); None when none are counted."""
+        return self._dp.cost_flops(batch)
+
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """A tensor left on the card for frames that came as a CUDA
         tensor, a numpy array for frames from the host."""

@@ -6,8 +6,12 @@ The counterpart of the JAX package's models/infer.py.  There,
 shards each batch's leading axis.  The port runs one card per kernel
 instance (the engine gives each pipeline instance its own card), so this
 class places the model on that one device and moves batches to it; more
-than one device raises.  The FLOP probes (`lowered_flops`,
-`infer_cost_flops`) are not ported: they wait for the port's cost ledger.
+than one device raises.  `lowered_flops` / `DataParallelApply.cost_flops`
+are the FLOP probes behind the model ops' `infer_cost_flops` (the JAX
+package's MFU probe): they count one call with
+torch.utils.flop_counter.FlopCounterMode, which counts matrix products
+and convolutions — where XLA's cost analysis also counts elementwise
+work, so the two differ by a stated ratio (tests/test_torch_detection.py).
 """
 
 from __future__ import annotations
@@ -17,6 +21,16 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.flop_counter import FlopCounterMode
+
+
+def lowered_flops(fn, *args) -> Optional[float]:
+    """FLOPs of one call fn(*args), counted by FlopCounterMode (matrix
+    products and convolutions); None when it counts none."""
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        fn(*args)
+    flops = counter.get_total_flops()
+    return float(flops) if flops > 0 else None
 
 
 class DataParallelApply:
@@ -36,6 +50,17 @@ class DataParallelApply:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.module = module.to(self.device).eval()
 
+    def _device_batch(self, batch) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            batch if isinstance(batch, np.ndarray) else np.stack(batch))) \
+            .to(self.device)
+
+    def cost_flops(self, batch) -> Optional[float]:
+        """FLOPs of one call of the module on `batch` (lowered_flops)."""
+        x = batch if isinstance(batch, torch.Tensor) \
+            else self._device_batch(batch)
+        return lowered_flops(self.module, x)
+
     def __call__(self, batch):
         """A host batch (numpy array or list of frames) is moved to the
         device and the result comes back as numpy; a tensor must already
@@ -47,7 +72,5 @@ class DataParallelApply:
                                  f"{self.device}")
             with torch.no_grad():
                 return self.module(batch)
-        x = torch.from_numpy(np.ascontiguousarray(
-            batch if isinstance(batch, np.ndarray) else np.stack(batch)))
         with torch.no_grad():
-            return self.module(x.to(self.device)).cpu().numpy()
+            return self.module(self._device_batch(batch)).cpu().numpy()

@@ -212,6 +212,11 @@ class InstanceSegment(Kernel):
         self._dp = DataParallelApply(SegmentRows(net, score_thresh),
                                      config.devices)
 
+    def infer_cost_flops(self, batch):
+        """FLOPs of one inference call on `batch` (the MFU probe,
+        DataParallelApply.cost_flops); None when none are counted."""
+        return self._dp.cost_flops(batch)
+
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """(B, top_k, 6 + M*M) float32 per batch: a tensor left on the
         card for frames that came as a CUDA tensor, numpy for frames from

@@ -365,3 +365,76 @@ def test_model_ops_on_card_match_cpu(card, op):
     else:
         assert boxes_agree(want, got, segmentation.unpack_instances) >= 0.95
         assert np.mean(matched_mask_ious(want, got)) >= 0.9
+
+
+def _queue_c_frames(case):
+    import numpy as np
+    rng = np.random.RandomState(11)
+    if case == "int32_in_range":
+        return rng.randint(0, 256, (2, 8, 8, 3)).astype(np.int32)
+    if case == "int32_out_of_range":
+        return rng.randint(-40, 600, (2, 8, 8, 3)).astype(np.int32)
+    return rng.randint(0, 256, (3, 9, 7, 5)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case", ["int32_in_range", "int32_out_of_range",
+                                  "uint8_c5"])
+def test_histogram_op_bins_integer_frames_on_card(card, case):
+    """The frames the JAX op bins and the port's op once refused take the
+    kernel's id entry on the card, and give the counts of the op's CPU
+    path (which tests/test_torch_histogram.py holds to the JAX op)."""
+    from scanner_tpu_torch.kernels.imgproc import Histogram
+    frames = torch.from_numpy(_queue_c_frames(case))
+    ids = cuda_ops.histogram_ids_launches
+    got = Histogram(None).execute(frames.to(card))
+    torch.cuda.synchronize()
+    assert got.is_cuda and cuda_ops.histogram_ids_launches == ids + 1
+    assert torch.equal(got.cpu(), Histogram(None).execute(frames))
+
+
+def test_chain_graph_replays_match_eager_calls(card):
+    """A Resize -> Blur -> Histogram chain captured as one CUDA graph:
+    each replay gives the counts of the same composition run eagerly on
+    the card, returns its own tensor (a clone of the static output), and
+    counts its histogram launch; a second evaluator of the same chain
+    replays the process's graph without capturing again."""
+    import numpy as np
+    from scanner_tpu_torch.engine import evaluate
+    from scanner_tpu_torch.engine.evaluate import (TaskEvaluator,
+                                                   resolve_device)
+    from scanner_tpu_torch.graph import analysis
+    from scanner_tpu_torch.graph.ops import OpGenerator
+    from scanner_tpu_torch.graph.streams_dsl import IOGenerator
+    from scanner_tpu_torch.util.profiler import Profiler
+
+    class _Stream:
+        is_video = False
+        n = 64
+
+    io, ops = IOGenerator(), OpGenerator()
+    col = ops.Histogram(frame=ops.Blur(frame=ops.Resize(
+        frame=io.Input([_Stream()]), width=[320], height=[240]),
+        kernel_size=3, sigma=1.1))
+    info = analysis.analyze([io.Output(col, [_Stream()])])
+    rng = np.random.RandomState(4)
+    frames = [torch.from_numpy(rng.randint(0, 256, (8, 480, 640, 3))
+                               .astype(np.uint8)).to(card)
+              for _ in range(3)]
+    for _ in range(2):
+        te = TaskEvaluator(info, Profiler(), resolve_device("cuda"))
+        try:
+            (fki,) = te.fused.values()
+            assert fki.chain_id == "Resize+Blur+Histogram"
+            fki.bind_stream(0, 0)
+            replayed = cuda_ops.histogram_replay_launches
+            outs = [fki.execute(f) for f in frames]
+            torch.cuda.synchronize()
+            (cg,) = [cg for key, cg in evaluate._CHAIN_GRAPHS.items()
+                     if key[0] == fki.program_key]
+            assert len(cg.graphs) == 1
+            assert cuda_ops.histogram_replay_launches == replayed + 3
+            for f, out in zip(frames, outs):
+                assert torch.equal(out, fki._chain_fn(f))
+            assert not torch.equal(outs[0], outs[1])
+        finally:
+            te.close()

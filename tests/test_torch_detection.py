@@ -232,3 +232,28 @@ def test_model_ops_refuse_several_devices():
     dp = DataParallelApply(torch.nn.Identity(), [])
     with pytest.raises(ValueError, match="model on cpu"):
         dp(torch.zeros(1, device="meta"))
+
+
+# FLOPs of one call (the MFU probe): the port counts with
+# torch.utils.flop_counter (convolutions and matrix products, 2 per
+# multiply-add); the JAX package asks XLA's cost analysis, which also
+# counts elementwise work (activations, casts, the decode) but folds
+# some of it away.  On 2 frames of 64 x 64 at width 8 the two read
+# within 2 % of each other (measured on the CPU: ObjectDetect and
+# FaceDetect 1.0198, FaceEmbedding 0.9853, InstanceSegment 1.0016), so
+# the bound is 5 %.
+FLOPS_RATIO_BOUND = 0.05
+
+
+@pytest.mark.parametrize("op", ["ObjectDetect", "FaceDetect"])
+def test_infer_cost_flops_match_jax(op):
+    frames = np.random.RandomState(5).randint(0, 256, (2, 64, 64, 3)) \
+        .astype(np.uint8)
+    jmod, tmod = {"ObjectDetect": (jdet, tdet),
+                  "FaceDetect": (jface, tface)}[op]
+    want = getattr(jmod, op)(JConfig(device=DeviceType.CPU),
+                             width=8).infer_cost_flops(frames)
+    got = getattr(tmod, op)(TConfig(device=DeviceType.CPU),
+                            width=8).infer_cost_flops(frames)
+    assert want and got
+    assert abs(got / want - 1.0) <= FLOPS_RATIO_BOUND

@@ -77,6 +77,47 @@ def test_op_execute_on_tensor_and_array():
     np.testing.assert_array_equal(a, b.numpy())
 
 
+# the frames the JAX op bins that the port's op once refused: int32
+# frames (its numpy path and its jnp path) and uint8 frames of five
+# channels (more than the kernel's frame entry takes)
+QUEUE_C_CASES = {
+    "int32_in_range": lambda rng: rng.randint(0, 256, (2, 8, 8, 3))
+    .astype(np.int32),
+    "uint8_c5": lambda rng: rng.randint(0, 256, (3, 9, 7, 5))
+    .astype(np.uint8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUEUE_C_CASES))
+def test_op_bins_integer_frames_as_jax(case):
+    """Histogram.execute on the frames the JAX op bins: its tensor path
+    (the kernel's id entry, plain version on the CPU), its numpy path and
+    execute_traced all equal the JAX op's counts, exactly."""
+    frames = QUEUE_C_CASES[case](np.random.RandomState(11))
+    want = np.asarray(JaxHistogram(None).execute(frames))
+    k = Histogram(None)
+    got_np = k.execute(frames)
+    got_t = k.execute(torch.from_numpy(frames))
+    assert isinstance(got_np, np.ndarray) and got_np.dtype == np.int32
+    assert isinstance(got_t, torch.Tensor) and got_t.dtype == torch.int32
+    np.testing.assert_array_equal(got_np, want)
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    np.testing.assert_array_equal(
+        k.execute_traced(torch.from_numpy(frames)).numpy(), want)
+
+
+def test_op_bins_out_of_range_int32_as_jax_jnp_path():
+    """int32 values below 0 and past 255 follow the JAX op's jnp path
+    (_histogram_impl): below 0 in bin 0, (v * 16) // 256 >= 16 nowhere."""
+    frames = np.random.RandomState(12).randint(-40, 600, (2, 8, 8, 3)) \
+        .astype(np.int32)
+    want = np.asarray(JaxHistogram(None).execute(jnp.asarray(frames)))
+    k = Histogram(None)
+    np.testing.assert_array_equal(
+        k.execute(torch.from_numpy(frames)).numpy(), want)
+    np.testing.assert_array_equal(k.execute(frames), want)
+
+
 @pytest.mark.parametrize("bad,err", [
     (lambda: torch.zeros((2, 4, 4, 3), dtype=torch.int32), TypeError),
     (lambda: torch.zeros((4, 4, 3), dtype=torch.uint8), ValueError),

@@ -207,3 +207,17 @@ def test_shipped_weights_segment_through_client(tmp_path):
     assert matched >= 0.7 * total, f"recall {matched}/{total}"
     assert iou_c >= 0.55, f"mask IoU too low: {iou_c:.2f}"
     assert iou_c > iou_w + 0.05, (iou_c, iou_w)
+
+
+def test_infer_cost_flops_match_jax():
+    """FLOPs of one call, the port's flop counter against XLA's cost
+    analysis: within the bound of tests/test_torch_detection.py (5 %;
+    measured 1.0016 on the CPU at 2 frames of 64 x 64, width 8)."""
+    frames = np.random.RandomState(7).randint(0, 256, (2, 64, 64, 3)) \
+        .astype(np.uint8)
+    want = jseg.InstanceSegment(JConfig(device=DeviceType.CPU),
+                                width=8).infer_cost_flops(frames)
+    got = tseg.InstanceSegment(TConfig(device=DeviceType.CPU),
+                               width=8).infer_cost_flops(frames)
+    assert want and got
+    assert abs(got / want - 1.0) <= 0.05

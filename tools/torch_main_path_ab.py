@@ -4,6 +4,7 @@ turns on one card: frames/s and stage spans per turn.
 
     python3 tools/torch_main_path_ab.py --tree parent=path/to/checkout
         [--pairs 6] [--frames 600] [--seed 0] [--out FILE]
+        [--this-env KEY=VALUE ...]
 
 "this" is the checkout the tool lives in; --tree names another, whose
 scanner_tpu_torch/ is imported in its place.  The turns run this, other,
@@ -14,6 +15,8 @@ from --seed) as a pickled-frame table, and runs config 1, then config 2,
 through Client(device="cuda") (chip_smoke.py's run_config).  It prints one
 JSON line: frames/s, histogram launches and the stage spans of each
 config.  The last lines give each checkout's frames/s in turn order.
+--this-env sets an environment variable in this checkout's turns only
+(e.g. SCANNER_TPU_COSTSTATS=0 to run its port with a ledger off).
 Needs a CUDA card and nvcc.
 """
 
@@ -75,6 +78,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=600)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--this-env", action="append", default=[],
+                    help="KEY=VALUE set in this checkout's turns only")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -88,15 +93,18 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    lines = [f"card: {card}"]
-    print(lines[0], flush=True)
+    this_env = dict(os.environ, **dict(kv.split("=", 1)
+                                       for kv in args.this_env))
+    lines = [f"card: {card}", f"this-env: {args.this_env}"]
+    print("\n".join(lines), flush=True)
     order = ["this", other, other, "this"] * ((args.pairs + 1) // 2)
     fps = {name: {1: [], 2: []} for name in trees}
     for turn, name in enumerate(order[:2 * args.pairs]):
         r = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--tree", args.tree,
              "--worker", trees[name], "--frames", str(args.frames),
-             "--seed", str(args.seed)], capture_output=True, text=True)
+             "--seed", str(args.seed)], capture_output=True, text=True,
+            env=this_env if name == "this" else None)
         if r.returncode:
             print(r.stderr, file=sys.stderr)
             raise RuntimeError(f"turn {turn} ({name}) failed")
