@@ -42,7 +42,28 @@ Phases, each printed on its own line; any failure exits non-zero:
                   through Client(device="cuda");
                   the stored rows must equal the port's own
                   Client(device="cpu") run byte for byte, and the kernel's
-                  launch counter must move in each run;
+                  launch counter must move in each run.  Around it, on
+                  the same client (which serves telemetry on an
+                  ephemeral loopback port and starts the process health
+                  engine and remediation controller):
+     health       what the engine sampled while configs 1, 2 and shot
+                  ran (ticks, firing rules, Client.health(), the card's
+                  memory in use, which must be > 0, and busy seconds),
+                  then configs 1 and 2 with the engine and controller off
+                  against on, in turns; the host time of each engine tick;
+     telemetry    config 1 with /metrics scraped every 0.1 s, then
+                  /metrics, /healthz, /readyz, /alertz, /statusz once:
+                  the card's device="cuda:N" series and the statusz
+                  panels health, memory, framecache, efficiency and
+                  remediation must be there; scrape times;
+     device_trace config 1 at profiler_level=2: torch.profiler's capture
+                  merged by Profile.write_trace must hold the histogram
+                  kernel by name once per counted launch, each inside
+                  the host window and an evaluate:Histogram span; the
+                  card's busy share of that window (kernels, copies,
+                  fills);
+     serial       config 1 under SCANNER_TPU_NO_PIPELINING=1: rows the
+                  same bytes as the pipelined run's;
   7. pose_serve   PoseDetect(width=8) with the shipped weights over a
                   stored table of 48 x 48 blob frames through
                   Client(device="cuda"): mean localization error under
@@ -85,7 +106,10 @@ Phases, each printed on its own line; any failure exits non-zero:
                   bucket) and staged (fusion off), whose rows must be the
                   same bytes; it prints the chains planned, graphs
                   captured and replayed, the histogram launches made by
-                  replays (at least one) and both runs' frames/s;
+                  replays (at least one) and both runs' frames/s.  One
+                  more fused (b) job at profiler_level=2: its trace must
+                  show the histogram kernel once per counted launch (the
+                  graph replays' launches), inside the chain's spans;
  11. ledgers      after configs 1, 2 and shot, and again after [golden]:
                   Client.memory_report()'s live and watermark bytes by
                   buffer kind beside torch.cuda.max_memory_allocated, and
@@ -110,6 +134,17 @@ Phases, each printed on its own line; any failure exits non-zero:
                   (calls cycle over 8 distinct batches, past the L2), on
                   flat frames, at B = 8 and 32, and with every kernel a
                   wrapper call runs (it must be one).
+ 14. framecache   the process frame cache on the card at 256 MB over the
+                  600 frames in the YUV420 wire (460,800 B each): a
+                  stencil pass, two dense passes of 96-frame tasks and a
+                  Gather of a hot clip, each task's tensor equal to
+                  direct staging; hits, LRU eviction at capacity, no
+                  leaked pins; a 96-frame page gather against staging
+                  from the host.  Then the closed loop: device memory
+                  past 93 % of the card's must fire hbm_pressure and the
+                  controller's frame_cache_shrink must shrink the pool to
+                  half its occupancy within 15 s (audited "applied").
+                  Last, because its ballast fills the card.
 
 The frames are made from --seed (the repo's deterministic test pattern
 plus seeded noise) and stored with Client.new_table as a pickled-frame
@@ -409,10 +444,12 @@ def stored_items(db, table: str):
     return list(db.load_column(table, desc.columns[0].name))
 
 
-def run_config(client, st, config, out: str):
+def run_config(client, st, config, out: str, level: int = 1,
+               job_ids: list = None):
     """Run config 1, config 2 or "shot" (HistDiff -> ShotBoundary) into
-    table `out`; returns (wall seconds, the job's stage seconds {load,
-    evaluate, save, evaluate:<op>})."""
+    table `out` at profiler level `level`; returns (wall seconds, the
+    job's stage seconds {load, evaluate, save, evaluate:<op>}); appends
+    the job id to `job_ids` when given."""
     src = client.io.Input([st.NamedStream(client, "frames")])
     if config == "shot":
         col = client.ops.ShotBoundary(diff=client.ops.HistDiff(frame=src),
@@ -421,11 +458,15 @@ def run_config(client, st, config, out: str):
         col = client.ops.Histogram(frame=src)
     if config == 2:
         col = client.ops.HistogramDelta(hist=col)
+    perf = st.PerfParams.manual(WORK, IO)
+    perf.profiler_level = level
     t0 = time.time()
     job = client.run(client.io.Output(col, [st.NamedStream(client, out)]),
-                     st.PerfParams.manual(WORK, IO), show_progress=False,
+                     perf, show_progress=False,
                      cache_mode=st.CacheMode.Overwrite)
     wall = time.time() - t0
+    if job_ids is not None:
+        job_ids.append(job)
     stats = client.get_profile(job).statistics()
     return wall, {k: round(v["total_s"], 4) for k, v in stats.items()
                   if k in ("load", "evaluate", "save")
@@ -983,27 +1024,44 @@ def golden(st, work: str, seed: int) -> dict:
         col = client.ops.Histogram(frame=col)
         return col if what == "b" else client.ops.HistDiff(frame=col)
 
-    def run(client, dev, whats):
+    def run(client, dev, whats, level=1):
         for what in whats:
+            perf = st.PerfParams.manual(8, 16)
+            perf.profiler_level = level
             t0 = time.time()
             job = client.run(client.io.Output(graph(client, what), [
                 st.NamedStream(client, f"{what}_{dev}")]),
-                st.PerfParams.manual(8, 16), show_progress=False,
+                perf, show_progress=False,
                 cache_mode=st.CacheMode.Overwrite)
             secs[(what, dev)] = time.time() - t0
+            jobs[(what, dev)] = job
             spans[(what, dev)] = {
                 k: round(v["total_s"], 4) for k, v in
                 client.get_profile(job).statistics().items()
                 if k in ("load", "evaluate", "save")
                 or k.startswith("evaluate:")}
 
-    secs, spans = {}, {}
+    secs, spans, jobs = {}, {}, {}
     cuda_ops.reset_counts()
     captures0, replays0 = graph_counts()
     run(gpu, "cuda", ("a", "b", "c", "crop", "flow"))
     captures, replays = graph_counts()
     captures, replays = captures - captures0, replays - replays0
     replay_launches = cuda_ops.histogram_replay_launches
+    # one fused (b) job at profiler level 2: the histogram kernels that
+    # the chain's graph replays run, as the device trace shows them
+    counted0 = cuda_ops.histogram_launches
+    run(gpu, "cuda_level2", ("b",), level=2)
+    counted = cuda_ops.histogram_launches - counted0
+    by_replay = cuda_ops.histogram_replay_launches - replay_launches
+    traced = traced_histograms(
+        gpu.get_profile(jobs[("b", "cuda_level2")]),
+        os.path.join(work, "golden_b_level2_trace.json"),
+        "evaluate:Resize+Blur+Histogram")
+    check(by_replay > 0 and traced["histogram_kernel_events"] == counted,
+          f"[golden] (b) at level 2: the trace shows "
+          f"{traced['histogram_kernel_events']} histogram kernels for "
+          f"{counted} counted launches ({by_replay} by graph replays)")
     fusion.set_enabled(False)
     try:
         run(gpu, "cuda_staged", ("a", "b", "c"))
@@ -1021,6 +1079,8 @@ def golden(st, work: str, seed: int) -> dict:
           f"[golden]: {replays} graph replays launched the histogram "
           f"kernel {replay_launches} times")
     get = {k: rows_of(cpu, st, f"{k[0]}_{k[1]}") for k in secs}
+    check(same_bytes(get[("b", "cuda")], get[("b", "cuda_level2")]),
+          "[golden] (b): the level-2 rows differ from the level-1 rows")
     for what in ("a", "b", "c"):
         check(same_bytes(get[(what, "cuda")], get[(what, "cuda_staged")]),
               f"[golden] ({what}): the fused rows on the card differ from "
@@ -1031,7 +1091,12 @@ def golden(st, work: str, seed: int) -> dict:
                    "scanner_tpu_fusion_chains_planned"))),
                graphs_captured=captures, graph_replays=replays,
                histogram_replay_launches=replay_launches,
-               fused_rows_identical_to_staged=True)
+               fused_rows_identical_to_staged=True,
+               b_level2_launches_counted=counted,
+               b_level2_replay_launches=by_replay,
+               b_level2_fps=round(GOLDEN_FRAMES / secs[("b", "cuda_level2")],
+                                  3),
+               **{f"b_level2_{k}": v for k, v in traced.items()})
     for what in ("a", "crop"):
         a = np.stack(get[(what, "cuda")]).astype(np.int32)
         b = np.stack(get[(what, "cpu")]).astype(np.int32)
@@ -1178,6 +1243,460 @@ def warmup(st, work: str, seed: int) -> dict:
 
 
 # the main path's instance of the histogram kernel (C = 3, 16 bins)
+# [framecache]: the default pool over one item of the main path's
+# frames in the YUV420 wire the loader stages (460,800 B a frame);
+# dense tasks are the main path's io packets, stencil tasks reach 8 rows
+# back into the task before them
+CACHE_OVERLAP = 8
+# [framecache] closed loop: device memory in use over the card's limit
+# past hbm_pressure's 0.92, and the longest wait for the shrink
+PRESSURE, LOOP_WAIT_S, LOOP_INTERVAL_S = 0.93, 15.0, 0.2
+
+
+def engine_sample(eng, series: str, device: str):
+    """Every value the health engine sampled of `series` on `device`,
+    oldest first (the engine keeps only the series its rules read)."""
+    out = []
+    for _t, data in list(eng._samples):
+        for smp in (data.get(series) or {}).get("samples", []):
+            if smp.get("labels", {}).get("device") == device:
+                out.append(float(smp["value"]))
+    return out
+
+
+def time_ticks(eng):
+    """From now on, the host seconds of each tick the process health
+    engine runs (its loop calls eng.tick(), here wrapped in a clock):
+    returns (the list the ticks append to, the clock's start)."""
+    spent, inner = [], eng.tick
+
+    def tick(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+    eng.tick = tick
+    return spent, time.perf_counter()
+
+
+def health_phase(gpu, st, dev_label: str, n_frames: int,
+                 ticks) -> dict:
+    """What the process health engine saw while configs 1, 2 and shot
+    ran, then configs 1 and 2 with the engine and the controller off
+    (what SCANNER_TPU_HEALTH=0 SCANNER_TPU_REMEDIATION=0 select at
+    import) against on, in turns on, off, off, on.  `ticks` is what
+    time_ticks returned when the main path's client started the engine:
+    the host cost of each tick on this card's host."""
+    from scanner_tpu_torch.engine import controller
+    from scanner_tpu_torch.util import health
+    eng = health.engine()
+    in_use = engine_sample(eng, "scanner_tpu_device_hbm_bytes_in_use",
+                           dev_label)
+    busy = engine_sample(eng, "scanner_tpu_device_busy_seconds_total",
+                         dev_label)
+    check(len(eng._samples) > 0, "the health engine never sampled")
+    check(bool(in_use) and max(in_use) > 0,
+          f"the health engine sampled no {dev_label} memory in use")
+    check(bool(busy) and max(busy) > 0,
+          f"the health engine sampled no {dev_label} busy seconds")
+    status = gpu.health()
+    out = dict(ticks=len(eng._samples),
+               firing=json.dumps(sorted({f["rule"]
+                                         for f in status["firing"]})),
+               client_health=status["status"],
+               hbm_bytes_in_use_last=int(in_use[-1]),
+               hbm_bytes_in_use_max=int(max(in_use)),
+               busy_seconds_total_last=round(busy[-1], 4))
+    fps = {"on": {1: [], 2: []}, "off": {1: [], 2: []}}
+    for mode in ("on", "off", "off", "on"):
+        on = mode == "on"
+        health.set_enabled(on)
+        controller.set_enabled(on)
+        if on:
+            health.ensure_started()
+            controller.ensure_started()
+        else:
+            eng.stop()
+        for cfg in (1, 2):
+            wall, _ = run_config(gpu, st, cfg, f"config{cfg}_health")
+            fps[mode][cfg].append(round(n_frames / wall, 3))
+    health.set_enabled(True)
+    controller.set_enabled(True)
+    health.ensure_started()
+    controller.ensure_started()
+    for mode in fps:
+        for cfg in (1, 2):
+            out[f"config{cfg}_fps_engine_{mode}"] = json.dumps(fps[mode][cfg])
+    spent, since = ticks
+    check(len(spent) > 0, "no engine tick was timed")
+    spent = sorted(spent)
+    out.update(ticks_timed=len(spent),
+               tick_ms_median=spent[len(spent) // 2] * 1e3,
+               tick_ms_max=spent[-1] * 1e3,
+               tick_host_share=sum(spent) / (time.perf_counter() - since))
+    return out
+
+
+def scrape(port: int, path: str):
+    """(status, body, seconds) of one GET on the loopback server."""
+    import urllib.error
+    import urllib.request
+    t0 = time.time()
+    try:
+        r = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                   timeout=30)
+        code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, time.time() - t0
+
+
+def telemetry_phase(gpu, st, dev_label: str, n_frames: int) -> dict:
+    """Config 1 through the main path's client, which serves telemetry
+    on an ephemeral loopback port: /metrics scraped every 0.1 s while
+    the job runs, then every endpoint once."""
+    import threading
+    port = gpu._metrics_server.port
+    during, stop = [], threading.Event()
+
+    def scraper():
+        while not stop.is_set():
+            code, _body, secs = scrape(port, "/metrics")
+            during.append((code, secs))
+            stop.wait(0.1)
+    t = threading.Thread(target=scraper, name="scraper")
+    t.start()
+    try:
+        wall, _ = run_config(gpu, st, 1, "config1_telemetry")
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    check(not t.is_alive(), "the /metrics scraper did not stop")
+    check(bool(during) and all(c == 200 for c, _ in during),
+          f"/metrics scrapes during config 1: {during[:5]}")
+    got = {}
+    for path in ("/metrics", "/healthz", "/readyz", "/alertz", "/statusz"):
+        got[path] = scrape(port, path)
+    code, body, _ = got["/metrics"]
+    text = body.decode()
+    for series in ("scanner_tpu_device_hbm_bytes_in_use",
+                   "scanner_tpu_device_hbm_limit_bytes",
+                   "scanner_tpu_device_busy_seconds_total"):
+        check(f'{series}{{device="{dev_label}"}}' in text,
+              f"/metrics lacks {series} on {dev_label}")
+    check(got["/healthz"][0] == 200, "/healthz did not answer 200")
+    check(got["/readyz"][0] in (200, 503), "/readyz answered neither "
+                                          "200 nor 503")
+    check(got["/alertz"][0] == 200
+          and "rule_table" in json.loads(got["/alertz"][1]),
+          "/alertz has no rule table")
+    statusz = json.loads(got["/statusz"][1])
+    missing = {"health", "memory", "framecache", "efficiency",
+               "remediation"} - set(statusz)
+    check(got["/statusz"][0] == 200 and not missing,
+          f"/statusz lacks {sorted(missing)}")
+    secs = sorted(s for _, s in during)
+    return dict(port=port, config1_fps=round(n_frames / wall, 3),
+                scrapes_during_run=len(during),
+                scrape_ms_during_run_median=round(
+                    secs[len(secs) // 2] * 1e3, 3),
+                scrape_ms_during_run_max=round(secs[-1] * 1e3, 3),
+                metrics_bytes=len(body),
+                readyz=got["/readyz"][0],
+                healthz=json.loads(got["/healthz"][1])["status"],
+                healthz_reasons=json.dumps(
+                    json.loads(got["/healthz"][1])["reasons"]),
+                scrape_ms_after=json.dumps(
+                    {p: round(v[2] * 1e3, 3) for p, v in got.items()}))
+
+
+def device_trace_phase(gpu, st, work: str, n_frames: int,
+                       level1_fps: float) -> dict:
+    """Config 1 at profiler_level=2: the job's torch.profiler capture
+    merged into Profile.write_trace.  The histogram kernel's events by
+    name: as many as the launches counted, each inside the capture's
+    host window and starting inside (or within 1 ms after) a host
+    evaluate:Histogram span.  One capture, as a user's job takes it."""
+    from scanner_tpu_torch.kernels import cuda_ops
+    path = os.path.join(work, "config1_level2_trace.json")
+    jobs = []
+    cuda_ops.reset_counts()
+    wall, _ = run_config(gpu, st, 1, "config1_level2", level=2,
+                         job_ids=jobs)
+    launches = cuda_ops.histogram_launches
+    got = traced_histograms(gpu.get_profile(jobs[0]), path,
+                            "evaluate:Histogram")
+    check(got["histogram_kernel_events"] == launches,
+          f"the trace shows {got['histogram_kernel_events']} histogram "
+          f"kernels for {launches} counted launches")
+    return dict(level2_fps=round(n_frames / wall, 3),
+                level1_fps=level1_fps, launches_counted=launches, **got)
+
+
+def traced_histograms(prof, path: str, span: str) -> dict:
+    """Write one job's profile with its single device capture merged
+    (pid >= DEVICE_PID_BASE) to `path`; checks that the capture holds
+    device events and histogram kernels, every one of them inside the
+    host window and starting inside (or within 1 ms after) a host span
+    named `span`.  Returns the counts, the window and the card's busy
+    share over it."""
+    from scanner_tpu_torch.util.torchprof import DEVICE_PID_BASE
+    recs = [r for p in prof.profilers for r in p.device_traces]
+    check(len(recs) == 1, f"a level-2 job captured {len(recs)} device "
+                          f"traces, not 1")
+    prof.write_trace(path, merge_device=True)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("pid", 0) >= DEVICE_PID_BASE
+           and e.get("ph") == "X"]
+    kernels = [e for e in dev if e.get("cat") == "kernel"]
+    hist = [e for e in kernels if "hist" in e.get("name", "")]
+    check(bool(dev), "the merged trace has no device events")
+    check(bool(hist), "the merged trace shows no histogram kernel "
+                      f"(kernels: {sorted({e['name'] for e in kernels})[:8]})")
+    lo, hi = recs[0]["t0"] * 1e6, recs[0]["t1"] * 1e6
+    outside = [e for e in hist if not lo <= e["ts"] <= hi]
+    check(not outside, f"{len(outside)} histogram kernels lie outside "
+                       f"the host window")
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("pid", 0) < DEVICE_PID_BASE and e.get("name") == span]
+    inside = sum(1 for e in hist
+                 if any(a <= e["ts"] <= b + 1e3 for a, b in spans))
+    check(inside == len(hist), f"{len(hist) - inside} of {len(hist)} "
+                               f"histogram kernels start outside every "
+                               f"host {span} span")
+    # the card's busy share over the capture: kernels, copies and fills
+    busy_us = sum(e.get("dur", 0.0) for e in dev if e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset"))
+    return dict(device_events=len(dev), kernel_events=len(kernels),
+                histogram_kernel_events=len(hist),
+                histogram_kernel_name=repr(hist[0]["name"][:80]),
+                histogram_kernels_in_spans=inside, spans=len(spans),
+                window_s=round((hi - lo) / 1e6, 4),
+                device_busy_ms=round(busy_us / 1e3, 4),
+                device_busy_share=round(busy_us / (hi - lo), 6),
+                trace_bytes=os.path.getsize(path))
+
+
+def serial_phase(gpu, st, db, n_frames: int) -> dict:
+    """Config 1 under SCANNER_TPU_NO_PIPELINING=1: every stage inline on
+    one thread; its rows against the pipelined run's."""
+    os.environ["SCANNER_TPU_NO_PIPELINING"] = "1"
+    try:
+        wall, stages = run_config(gpu, st, 1, "config1_serial")
+    finally:
+        del os.environ["SCANNER_TPU_NO_PIPELINING"]
+    a = stored_items(db, "config1_serial")
+    b = stored_items(db, "config1_cuda")
+    check(len(a) == len(b) == n_frames and same_bytes(a, b),
+          "config 1's serial rows differ from the pipelined rows")
+    return dict(rows_identical_to_pipelined=True,
+                config1_serial_fps=round(n_frames / wall, 3),
+                stage_s=json.dumps(stages, sort_keys=True))
+
+
+def yuv420_wire(frames):
+    """(n, h*w*3/2) uint8 planar I420 of RGB frames (BT.601 studio
+    range, chroma averaged over 2 x 2): the wire format the loader
+    decodes video to and stages on the card."""
+    import numpy as np
+    n, h, w, _ = frames.shape
+    out = np.empty((n, h * w * 3 // 2), np.uint8)
+    for i in range(n):
+        f = frames[i].astype(np.float32)
+        r, g, b = f[..., 0], f[..., 1], f[..., 2]
+        y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+        u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
+        v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
+        sub = lambda p: p.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))  # noqa
+        out[i] = np.concatenate([
+            np.clip(np.rint(y), 0, 255).ravel(),
+            np.clip(np.rint(sub(u)), 0, 255).ravel(),
+            np.clip(np.rint(sub(v)), 0, 255).ravel()]).astype(np.uint8)
+    return out
+
+
+def framecache_phase(st, frames, dev, seed: int, work: str) -> dict:
+    """The process frame cache on the card at its default capacity,
+    driven as the loader drives it (plan, then assemble, which stages
+    the misses and offers them toward pages), over one item of the main
+    path's frames in the YUV420 wire: a stencil pass (tasks reaching 8
+    rows back), two dense passes of io-packet tasks, a Gather of a hot
+    clip.  Every assembled tensor must equal direct staging of the same
+    rows byte for byte.  Then the closed loop: device memory past
+    hbm_pressure's threshold must make the controller shrink the pool
+    to half its occupancy."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.engine import controller, framecache as fc
+    from scanner_tpu_torch.engine.batch import staged_device_put
+    from scanner_tpu_torch.util import health, memstats
+    wire = yuv420_wire(frames)
+    n = len(wire)
+    label = memstats.device_label(dev)
+    cache = fc.cache()
+    cache.clear()
+    table = ("chip_smoke", 0)
+
+    def task(rows):
+        rows = np.asarray(rows, np.int64)
+        p = cache.plan(dev, table, "frame", 0, "yuv420", rows, n)
+        got = cache.assemble(p, p.miss_rows, wire[p.miss_rows],
+                             hw=(H, W))
+        want = staged_device_put(wire[rows], dev, "staging", "smoke")
+        check(got.device == dev and torch.equal(got, want),
+              f"frame cache rows {rows[0]}..{rows[-1]} differ from "
+              f"direct staging")
+        p.lease.release()
+        return int(p.hit_mask.sum()), len(rows)
+
+    def status():
+        return cache.status_dict()["devices"].get(label, {})
+
+    passes = {}
+    stencil = [task(range(max(0, s - CACHE_OVERLAP), min(n, s + IO)))
+               for s in range(0, n, IO)]
+    passes["stencil"] = stencil
+    for k in (1, 2):
+        passes[f"dense{k}"] = [task(range(s, min(n, s + IO)))
+                               for s in range(0, n, IO)]
+    hot = np.arange(n // 3, n // 3 + IO, 3)
+    passes["gather"] = [task(hot)]
+    st_ = status()
+    hits = {k: sum(h for h, _ in v) for k, v in passes.items()}
+    rows = {k: sum(r for _, r in v) for k, v in passes.items()}
+    check(hits["stencil"] >= CACHE_OVERLAP * (len(stencil) - 1),
+          f"stencil back-reach rows missed the pages: {stencil}")
+    check(hits["dense2"] > 0, "no hits on the second dense pass")
+    check(st_["evictions"] > 0, "the pool never evicted at capacity")
+    check(st_["live_bytes"] + st_["fill_bytes"] <= st_["capacity_bytes"],
+          f"the pool overshoots its capacity: {st_}")
+    check(st_["pinned_bytes"] == 0, f"pins leaked: {st_}")
+    # page gather against staging from the host, 96 resident frames
+    resident = [r for r in range(n - IO, n)]
+    p = cache.plan(dev, table, "frame", 0, "yuv420", resident, n)
+    check(bool(p.hit_mask.all()), "the timed task's rows are not resident")
+    p.lease.release()
+
+    def from_pages():
+        q = cache.plan(dev, table, "frame", 0, "yuv420", resident, n)
+        out = cache.assemble(q, q.miss_rows, wire[q.miss_rows])
+        q.lease.release()
+        return out
+
+    def from_host():
+        return staged_device_put(wire[resident], dev, "staging", "smoke")
+
+    times = {}
+    for name, fn in (("assemble_from_pages", from_pages),
+                     ("staged_device_put_from_host", from_host)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.time() - t0) / 20 * 1e3
+    assemble_dev_ms = device_ms(from_pages, 20, [""])
+    out = dict(frames=n, frame_bytes=wire.shape[1], page_frames=
+               cache._page_frames.get((table, "frame", 0, "yuv420")),
+               capacity_mb=st_["capacity_bytes"] >> 20,
+               pages=st_["pages"], evictions=st_["evictions"],
+               hits=json.dumps(hits), rows=json.dumps(rows),
+               task_bytes=IO * wire.shape[1],
+               assemble_ms=round(times["assemble_from_pages"], 4),
+               assemble_device_ms=round(assemble_dev_ms[""], 4),
+               staged_put_ms=round(times["staged_device_put_from_host"], 4))
+
+    # -- the closed loop: hbm_pressure -> frame_cache_shrink -------------
+    eng = health.ensure_started()
+    ctrl = controller.ensure_started()
+    check(eng is not None and ctrl is not None,
+          "the health engine or the controller is switched off")
+    eng.set_interval(LOOP_INTERVAL_S)
+    occupied = st_["live_bytes"] + st_["fill_bytes"]
+    target = max(fc.MIN_CAPACITY_BYTES,
+                 min(st_["capacity_bytes"], occupied) // 2)
+    n_audit = len(ctrl.audit())
+    ballast = []
+    torch.cuda.empty_cache()
+    try:
+        stats = memstats.device_memory_stats()[label]
+        limit = stats["limit_bytes"]
+        chunk = 1 << 30
+        while stats["bytes_in_use"] / limit <= PRESSURE:
+            need = int(PRESSURE * limit) - stats["bytes_in_use"] + (64 << 20)
+            ballast.append(torch.empty(min(chunk, need), dtype=torch.uint8,
+                                       device=dev))
+            stats = memstats.device_memory_stats()[label]
+        pressure = stats["bytes_in_use"] / limit
+        t0 = time.time()
+        applied = None
+        while time.time() - t0 < LOOP_WAIT_S:
+            applied = next((a for a in ctrl.audit()[n_audit:]
+                            if a["playbook"] == "frame_cache_shrink"
+                            and a["action"] == "shrink_frame_cache"
+                            and a["outcome"] == "applied"
+                            and a["labels"].get("device") == label), None)
+            if applied is not None \
+                    and status()["capacity_bytes"] == target:
+                break
+            time.sleep(0.05)
+        waited = time.time() - t0
+    finally:
+        ballast.clear()
+        torch.cuda.empty_cache()
+        eng.set_interval(1.0)
+    after = status()
+    check(applied is not None,
+          f"no frame_cache_shrink/shrink_frame_cache/applied on {label} "
+          f"within {LOOP_WAIT_S} s (audit: {ctrl.audit()[n_audit:]})")
+    check(after["capacity_bytes"] == target
+          and after["live_bytes"] + after["fill_bytes"] <= target,
+          f"the pool did not shrink to {target} bytes: {after}")
+    out.update(loop_pressure=round(pressure, 4),
+               loop_seconds=round(waited, 3),
+               loop_audit=repr(f"{applied['playbook']}/{applied['action']}"
+                               f"/{applied['outcome']} {applied['labels']}"
+                               f" {applied['detail']}"),
+               capacity_before_mb=round(st_["capacity_bytes"] / 2 ** 20, 3),
+               capacity_after_mb=round(after["capacity_bytes"] / 2 ** 20, 3),
+               pages_after=after["pages"],
+               pressure_shrinks=after["pressure_shrinks"])
+    fc.set_capacity_mb(fc.DEFAULT_CAPACITY_MB)
+    cache.clear()
+    out["video_path"] = video_cache_ab(st, work, seed) if have_libav() \
+        else "skipped (no libav)"
+    return out
+
+
+def video_cache_ab(st, work: str, seed: int) -> str:
+    """HistDiff over a synthesized clip through Client(device="cuda"),
+    the frame cache on and off: the same rows."""
+    from scanner_tpu_torch.engine import framecache as fc
+    from scanner_tpu_torch.video.ingest import synthesize_video
+    clip = os.path.join(work, "cache_clip.mp4")
+    synthesize_video(clip, num_frames=IO * 2, width=W, height=H, fps=24)
+    client = st.Client(db_path=os.path.join(work, "cache_db"),
+                       device="cuda")
+    _, failed = client.ingest_videos([("clip", clip)])
+    check(not failed, f"ingest failed: {failed}")
+    rows = {}
+    for on in (True, False):
+        fc.set_enabled(on)
+        src = client.io.Input([st.NamedVideoStream(client, "clip")])
+        client.run(client.io.Output(client.ops.HistDiff(frame=src),
+                                    [st.NamedStream(client, f"v{on}")]),
+                   st.PerfParams.manual(WORK, IO), show_progress=False)
+        rows[on] = stored_items(client._db, f"v{on}")
+    fc.set_enabled(True)
+    check(same_bytes(rows[True], rows[False]),
+          "video HistDiff rows differ with the frame cache on and off")
+    return f"rows_identical({len(rows[True])})"
+
+
 HIST_MAIN_FUNCTION = "hist_u8_privateILi3EE"
 
 
@@ -1381,7 +1900,12 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         db_path = os.path.join(work, "db")
-        gpu = st.Client(db_path=db_path, device="cuda")
+        # the main path's client serves telemetry on an ephemeral
+        # loopback port ([telemetry]) and starts the process health
+        # engine and remediation controller ([health])
+        gpu = st.Client(db_path=db_path, device="cuda", metrics_port=0)
+        from scanner_tpu_torch.util import health
+        ticks = time_ticks(health.engine())
         gpu.new_table("frames", ["frame"], [[f] for f in frames],
                       codecs={"frame": "pickle"})
         secs, stages, launches = {}, {}, {}
@@ -1395,6 +1919,18 @@ def main() -> int:
                   f"config {cfg}: the histogram kernel never launched")
         phase("ledgers", **ledgers(gpu, ("Histogram", "HistDiff"),
                                    "configs 1, 2, shot"), card=repr(card))
+        # around the main path, on its client, before the CPU client
+        # opens the database (two clients keep their own metadata)
+        dev_label = str(torch.device("cuda", torch.cuda.current_device()))
+        phase("health", **health_phase(gpu, st, dev_label, args.frames,
+                                       ticks), card=repr(card))
+        phase("telemetry", **telemetry_phase(gpu, st, dev_label,
+                                             args.frames), card=repr(card))
+        phase("device_trace", **device_trace_phase(
+            gpu, st, work, args.frames, round(args.frames / secs[1], 3)),
+            card=repr(card))
+        phase("serial", **serial_phase(gpu, st, gpu._db, args.frames),
+              card=repr(card))
         cpu = st.Client(db_path=db_path, device="cpu")
         for cfg in (1, 2, "shot"):
             run_config(cpu, st, cfg, f"config{cfg}_cpu")
@@ -1511,6 +2047,12 @@ def main() -> int:
                   f"flash kernel ({f_ms:.4f} ms) is not faster than f32 "
                   f"scaled_dot_product_attention ({f_library_ms:.4f} ms) "
                   f"at {fb}x{ft}x{fd}")
+
+        # -- the frame cache last: its closed loop fills the card ------
+        phase("framecache", **framecache_phase(
+            st, frames, torch.device(dev_label), args.seed, work),
+            card=repr(card))
+        gpu.stop()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

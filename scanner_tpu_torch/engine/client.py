@@ -2,8 +2,10 @@
 
 Capability parity: reference scannerpy/client.py (Client:58, run:1282,
 ingest_videos:965, new_table:418, table:500, summarize:548) — the
-single-node path, in-process.  The JAX package's cluster mode
-(master/worker, engine/service.py) is not ported yet.
+single-node path, in-process, with the JAX package's local telemetry
+(`metrics_port=`, `health()`, `trace()` with device timelines).  The
+JAX package's cluster mode (master/worker, engine/service.py) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from ..graph.streams_dsl import IOGenerator, StreamsGenerator, TaskPartitioner
 from ..storage import Database, make_storage
 from ..storage import metadata as md
 from ..storage.streams import NamedStream, NamedVideoStream
+from ..util import health as _health
 from ..util.profiler import Profile, Profiler
+from . import controller as _controller
 from .evaluate import default_pipeline_instances, resolve_device
 from .executor import LocalExecutor
 
@@ -90,7 +94,12 @@ class Client:
                  # always wins.
                  pipeline_instances: Optional[int] = None,
                  decoder_threads: int = 1,
-                 storage_options: Optional[Dict[str, Any]] = None):
+                 storage_options: Optional[Dict[str, Any]] = None,
+                 metrics_port: Optional[int] = None):
+        """`metrics_port` serves /metrics, /healthz, /readyz, /alertz and
+        /statusz on loopback (util/metrics.py MetricsServer; 0 binds an
+        ephemeral port, see `self._metrics_server.port`); None serves
+        nothing."""
         self.device = resolve_device(device)
         storage_type = storage_type or "posix"
         if db_path is None and storage_type == "posix":
@@ -116,6 +125,35 @@ class Client:
             num_save_workers=num_save_workers,
             pipeline_instances=pipeline_instances or 1,
             decoder_threads=decoder_threads)
+        # live telemetry endpoint — strictly opt-in; port 0 binds an
+        # ephemeral port
+        self._metrics_server = None
+        if metrics_port is not None:
+            from ..util import coststats as _coststats
+            from ..util import memstats as _memstats
+            from ..util.metrics import MetricsServer
+            from . import framecache as _framecache
+            self._metrics_server = MetricsServer(
+                port=metrics_port,
+                statusz=lambda: {"role": "client",
+                                 "db": getattr(self._db.backend, "root",
+                                               None),
+                                 "device": str(self.device),
+                                 "health": _health.status_dict(),
+                                 "memory": _memstats.status_dict(),
+                                 "framecache":
+                                     _framecache.status_dict(),
+                                 "efficiency":
+                                     _coststats.status_dict(),
+                                 "remediation":
+                                     _controller.status_dict()},
+                healthz=lambda: {"role": "client"})
+        # health/SLO engine (util/health.py) and the remediation
+        # controller (engine/controller.py): local runs get the same
+        # judgment and the playbooks this process can act on; no-ops
+        # under SCANNER_TPU_HEALTH=0 / SCANNER_TPU_REMEDIATION=0
+        _health.ensure_started()
+        _controller.ensure_started()
 
     # -- context manager ----------------------------------------------------
 
@@ -126,9 +164,24 @@ class Client:
         self.stop()
 
     def stop(self) -> None:
-        """Nothing to release in local mode (kept for API parity)."""
+        """Stop the telemetry server, if this client serves one."""
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
 
     # -- live telemetry -----------------------------------------------------
+
+    def job_status(self, bulk_id: Optional[int] = None) -> Dict[str, Any]:
+        """Cluster job status; the cluster is not ported, so a local
+        client raises, as the JAX package's local Client does."""
+        raise ScannerException(
+            "job_status requires cluster mode (Client(master=...))")
+
+    def health(self) -> Dict[str, Any]:
+        """Health roll-up (util/health.py): this process's engine in the
+        cluster shape — worst-of `ok|degraded|unhealthy`, reason codes,
+        firing alerts — under nodes["client"]."""
+        return _health.merge_status({"client": _health.status_dict()})
 
     def metrics(self) -> Dict[str, Any]:
         """Live metrics snapshot of this process's registry under
@@ -300,7 +353,9 @@ class Client:
 
     def trace(self, job_id: int, path: Optional[str] = None) -> str:
         """Write the finished job's span tree (job root → task → stage →
-        op) as one Perfetto/Chrome trace; returns the path written."""
+        op) as one Perfetto/Chrome trace, plus any device timeline
+        captured at profiler_level >= 2 (util/torchprof.py); returns the
+        path written."""
         from ..util import tracing as _tr
         info = self._job_traces.get(job_id)
         if info is None or not info.get("trace_id"):
@@ -308,8 +363,26 @@ class Client:
                 f"no trace for job {job_id} (was tracing disabled? "
                 "SCANNER_TPU_TRACING)")
         spans = _tr.default_tracer().spans_for_trace(info["trace_id"])
+        # local spans come from the bounded flight recorder: a big job
+        # can evict its own early spans (incl. the root) — say so
+        # instead of writing a silently partial trace
+        if not any(d["name"] == "job" for d in spans):
+            import logging
+            logging.getLogger("scanner_tpu_torch.tracing").warning(
+                "trace for job %d is partial: the flight recorder "
+                "(SCANNER_TPU_TRACE_RING) evicted its earliest spans, "
+                "including the root", job_id)
+        from ..util.torchprof import DEVICE_PID_BASE, load_device_events
+        dev: List[Dict[str, Any]] = []
+        base = DEVICE_PID_BASE
+        for p in self._job_profiles.get(job_id, []):
+            for rec in p.device_traces:
+                got = load_device_events(rec, pid_base=base)
+                dev.extend(got)
+                if got:
+                    base += 1000
         path = path or f"scanner_trace_job{job_id}.json"
-        return _tr.write_chrome_trace(spans, path)
+        return _tr.write_chrome_trace(spans, path, device_events=dev)
 
     def stragglers(self, job_id: int) -> Dict[str, Any]:
         """Straggler analytics for a job: per-stage span stats + the

@@ -17,6 +17,7 @@ re-derived per task), so any instance may take any task.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -35,10 +36,14 @@ from ..storage import items as IT
 from ..storage import metadata as md
 from ..storage.streams import NamedVideoStream, StoredStream
 from ..util import faults as _faults
+from ..util import health as _health
 from ..util import metrics as _mx
 from ..util import tracing as _tr
 from ..util.log import get_logger
 from ..util.profiler import Profiler
+from ..util.torchprof import device_trace
+from . import controller as _controller
+from . import framecache as _fc
 from .batch import ColumnBatch, concat_batches
 from .evaluate import (StateCarryMiss, TaskEvaluator, assigned_device,
                        device_label)
@@ -161,6 +166,10 @@ class TaskItem:
     chunk_abort: Optional[threading.Event] = None
     # rows the loader actually decoded/read for this task
     decode_rows: int = 0
+    # frame-cache leases pinning the pages this task gathers from
+    # (engine/framecache.py); released when evaluation finishes or the
+    # task fails
+    cache_leases: Optional[List[Any]] = None
 
 
 class _StatefulChain:
@@ -254,6 +263,8 @@ class LocalExecutor:
         self.tracer = _tr.default_tracer()
         # trace_id of the last local run (Client.trace reads it)
         self.last_trace_id: Optional[str] = None
+        # the frame cache's identity for this database (page keys)
+        self._cache_db_key = _fc.db_cache_key(db.backend)
 
     # ------------------------------------------------------------------
     # Job-set preparation (reference master.cpp:1367 process_job admission)
@@ -522,10 +533,13 @@ class LocalExecutor:
             w.enqueued_at = now
         try:
             if work:
-                self._run_pipeline(
-                    info, work, show_progress,
-                    queue_size=int(perf.queue_size_per_pipeline),
-                    precompile=self.precompile_hint(jobs))
+                # level >= 2: capture the card's timeline around the job
+                # (merged into Profile.write_trace output)
+                with device_trace(self.profiler):
+                    self._run_pipeline(
+                        info, work, show_progress,
+                        queue_size=int(perf.queue_size_per_pipeline),
+                        precompile=self.precompile_hint(jobs))
         finally:
             _tr.close_span(self.tracer, root)
         for job in jobs:
@@ -584,7 +598,23 @@ class LocalExecutor:
         (precompile_hint).
 
         source() -> TaskItem | None (exhausted); called concurrently from
-        loader threads.  Returns the number of tasks fully saved."""
+        loader threads.  Returns the number of tasks fully saved.
+
+        SCANNER_TPU_NO_PIPELINING=1 (reference worker.cpp:140
+        NO_PIPELINING) degrades to a single-threaded sequential loop —
+        same semantics, clean stack traces for debugging."""
+        # the health/SLO engine watches this pipeline's queue-depth and
+        # stage-rate series: make sure it samples while stages run, even
+        # when no Client started it (direct LocalExecutor embedding);
+        # the remediation controller rides the same alerts with the
+        # playbooks this process can act on (frame-cache shrink, ladder
+        # re-warm)
+        _health.ensure_started()
+        _controller.ensure_started()
+        if os.environ.get("SCANNER_TPU_NO_PIPELINING", "0") not in \
+                ("0", "", "false"):
+            return self._run_serial(info, source, show_progress, total,
+                                    precompile)
         qsize = queue_size or 4
         # stateful affinity: kernel state lives in ONE instance's kernels,
         # so a chained run serializes evaluation (the reference pins a
@@ -647,9 +677,11 @@ class LocalExecutor:
             self._task_trace_end(w, status="error")
             # drop the failed attempt's staged columns/results NOW: a
             # task requeued after memory pressure must not keep holding
-            # the very device buffers that caused it
+            # the very device buffers that caused it (cache pins
+            # likewise must not outlive the attempt)
             w.elements = None
             w.results = None
+            self._release_cache(w)
             _log.exception("task (%d,%d) failed; aborting pipeline",
                            w.job.job_idx, w.task_idx, exc_info=e)
             record_err(e)
@@ -769,6 +801,10 @@ class LocalExecutor:
                         _M_DEV_TASKS.labels(device=lbl).inc()
                         _M_DEV_BUSY.labels(device=lbl).inc(dt)
                         w.elements = None
+                        # evaluation is done with the cached pages:
+                        # unpin them (the sink batches are the task's
+                        # own tensors, never cache pages)
+                        self._release_cache(w)
                     except Exception as e:  # noqa: BLE001
                         task_failed(w, e)
                         continue
@@ -857,6 +893,91 @@ class LocalExecutor:
             raise errors[0]
         return done_count[0]
 
+    def _run_serial(self, info: A.GraphInfo, source, show_progress: bool,
+                    total: int,
+                    precompile: Optional[Tuple[int, int, int]] = None
+                    ) -> int:
+        """The NO_PIPELINING path: every stage inline on this thread,
+        through the same evaluator (fused chains, staging, buckets) and
+        the same load/save code as the threaded pipeline."""
+        import types
+        tls = types.SimpleNamespace()
+        fb_tls = types.SimpleNamespace()  # carry-miss fallback decoders
+        te = TaskEvaluator(info, self.profiler, self.device,
+                           stage=self.stage, precompile=precompile,
+                           instance=0)
+        done = 0
+        try:
+            while True:
+                w = source()
+                if w is None:
+                    break
+                # single inline instance: staging still targets its
+                # assigned device so serial runs match the threaded path
+                w.instance = 0
+                w.device = assigned_device(self.device, 0)
+                self._task_trace_begin(w)
+                try:
+                    with self._task_scope(w):
+                        self.load_task(info, w, tls)
+                    t0 = time.time()
+                    with self._task_scope(w), \
+                            self.profiler.span("evaluate", level=0,
+                                               task=w.task_idx,
+                                               job=w.job.job_idx):
+                        if w.chunk_plans is not None:
+                            # inline streaming on this one thread; the
+                            # carry-miss fallback loads through fb_tls —
+                            # NOT tls, whose decoder sessions are
+                            # suspended mid-run and must not be reset
+                            w.results = self._consume_iter(
+                                info, te, w,
+                                self._iter_chunk_items(info, w, tls),
+                                fb_tls)
+                        else:
+                            w.results = self._evaluate_with_fallback(
+                                info, te, w, fb_tls)
+                    self._prefetch_results(w)
+                    dt = time.time() - t0
+                    _M_STAGE_SECONDS.labels(stage="evaluate").inc(dt)
+                    _M_STAGE_TASKS.labels(stage="evaluate").inc()
+                    lbl = device_label(w.device)
+                    _M_DEV_TASKS.labels(device=lbl).inc()
+                    _M_DEV_BUSY.labels(device=lbl).inc(dt)
+                    w.elements = None
+                    self._release_cache(w)
+                    t0 = time.time()
+                    with self._task_scope(w):
+                        with self.profiler.span("save", level=0,
+                                                task=w.task_idx,
+                                                job=w.job.job_idx):
+                            self._save_task(info, w)
+                    _M_STAGE_SECONDS.labels(stage="save").inc(
+                        time.time() - t0)
+                    _M_STAGE_TASKS.labels(stage="save").inc()
+                    self._task_trace_end(w)
+                except Exception as e:
+                    if w.trace_span is not None:
+                        w.trace_span.add_event(
+                            "error", type=type(e).__name__,
+                            message=str(e)[:200])
+                    self._task_trace_end(w, status="error")
+                    w.elements = None
+                    w.results = None
+                    self._release_cache(w)
+                    raise
+                done += 1
+                if show_progress:
+                    print(f"\rtasks {done}/{total}", end="", flush=True)
+        finally:
+            for ns in (tls, fb_tls):
+                for auto in getattr(ns, "automata", {}).values():
+                    auto.close()
+            te.close()
+        if show_progress:
+            print()
+        return done
+
     # ------------------------------------------------------------------
     # Work-packet streaming (PerfParams.stream_work_packets)
     # ------------------------------------------------------------------
@@ -872,7 +993,7 @@ class LocalExecutor:
 
         def __init__(self, ex: "LocalExecutor", w: TaskItem, tls,
                      node_id: int, si, plans: List[A.TaskPlan],
-                     output_format: str):
+                     output_format: str, use_cache: bool = False):
             desc = si["table"]
             all_rows = np.unique(np.concatenate([
                 np.asarray(p.source_rows[node_id], np.int64)
@@ -909,7 +1030,26 @@ class LocalExecutor:
                             if output_format == "yuv420" else None)
             self._hw = (auto.vd.height, auto.vd.width)
 
+            # frame cache (engine/framecache.py): one plan for the
+            # whole task's rows, pinned up front — the decode stream
+            # then covers only the misses, and each chunk assembles as
+            # a page gather + a staging copy of its fresh rows
+            self._plan = None
+            self._cache = None
             decode_rows = all_rows
+            if use_cache:
+                cache = _fc.cache()
+                plan = cache.plan(
+                    w.device, (ex._cache_db_key, desc.id), si["column"],
+                    item, output_format, all_rows - item_start,
+                    total_rows=item_end - item_start,
+                    keyint=ex._keyint_of(si))
+                _fc.attach_lease(w, plan.lease)
+                self._plan = plan
+                self._cache = cache
+                self._miss = set((plan.miss_rows
+                                  + item_start).tolist())
+                decode_rows = plan.miss_rows + item_start
 
             def gen():
                 for rr, fr in auto.stream_frames(
@@ -922,7 +1062,11 @@ class LocalExecutor:
 
         def batch_for(self, rows: Sequence[int]) -> ColumnBatch:
             rows_arr = np.asarray(rows, np.int64)
-            need = set(rows_arr.tolist()) - self._buf.keys()
+            if self._plan is None:
+                need = set(rows_arr.tolist()) - self._buf.keys()
+            else:
+                need = (set(rows_arr.tolist()) & self._miss) \
+                    - self._buf.keys()
             t0 = time.time()
             decoded = 0
             while need:
@@ -935,8 +1079,21 @@ class LocalExecutor:
                 lbl = threading.current_thread().name
                 _M_DECODED.labels(loader=lbl).inc(decoded)
                 _M_DECODE_SECONDS.labels(loader=lbl).inc(time.time() - t0)
-            data = np.stack([self._buf[int(r)] for r in rows_arr]) \
-                if len(rows_arr) else np.zeros((0,), np.uint8)
+            if self._plan is None:
+                data = np.stack([self._buf[int(r)] for r in rows_arr]) \
+                    if len(rows_arr) else np.zeros((0,), np.uint8)
+            else:
+                # page-gather assembly: fresh (miss) rows of this chunk
+                # feed page completion and stage once; resident rows
+                # gather from the pinned pages on this task's device
+                fresh_g = sorted(set(rows_arr.tolist()) & self._miss)
+                fresh_local = np.asarray(fresh_g, np.int64) \
+                    - self._item_start
+                fresh_data = (np.stack([self._buf[r] for r in fresh_g])
+                              if fresh_g else np.zeros((0, 1), np.uint8))
+                data = self._cache.assemble_rows(
+                    self._plan, rows_arr - self._item_start,
+                    fresh_local, fresh_data, hw=self._hw)
             keep_from = self._keep_from[self._chunk_i]
             self._chunk_i += 1
             for r in [r for r in self._buf if r < keep_from]:
@@ -954,7 +1111,8 @@ class LocalExecutor:
                 fmt = ("yuv420" if self._yuv_device_wire(info, nid)
                        else "rgb24")
                 feeds[nid] = self._VideoFeed(
-                    self, w, tls, nid, si, w.chunk_plans, fmt)
+                    self, w, tls, nid, si, w.chunk_plans, fmt,
+                    use_cache=self._cache_eligible(info, nid))
         for plan in w.chunk_plans:
             elements: Dict[int, ColumnBatch] = {}
             t0 = time.time()
@@ -993,6 +1151,14 @@ class LocalExecutor:
             self._chunk_put(w, _CHUNK_DONE, stop)
         except Exception as e:  # noqa: BLE001 — surfaces on the consumer
             self._chunk_put(w, (_CHUNK_ERR, e), stop)
+        finally:
+            # aborted task (consumer failure, pipeline stop): unpin
+            # frame-cache pages HERE — production has ended, so no later
+            # append races this release; the consumer's own release
+            # paths cover the normal completion order
+            if (w.chunk_abort is not None and w.chunk_abort.is_set()) \
+                    or (stop is not None and stop.is_set()):
+                self._release_cache(w)
 
     def _consume_iter(self, info: A.GraphInfo, te, w: TaskItem,
                       chunk_iter, fb_tls) -> Dict[int, ColumnBatch]:
@@ -1065,8 +1231,11 @@ class LocalExecutor:
                 job_idx=w.job.job_idx, task_idx=w.task_idx)
             tmp = TaskItem(w.job, w.task_idx, plan.output_range,
                            plan=plan2, device=w.device)
-            elements2 = self._load_sources(info, tmp, fb_tls)
-            return te.execute_task(w.job.jr, plan2, elements2)
+            try:
+                elements2 = self._load_sources(info, tmp, fb_tls)
+                return te.execute_task(w.job.jr, plan2, elements2)
+            finally:
+                self._release_cache(tmp)
 
     def _evaluate_with_fallback(self, info: A.GraphInfo, te, w: TaskItem,
                                 fb_tls):
@@ -1254,6 +1423,14 @@ class LocalExecutor:
                 # util/image.cu:22).
                 fmt = ("yuv420" if self._yuv_device_wire(info, node_id)
                        else "rgb24")
+                # paged frame cache (engine/framecache.py): rows already
+                # resident in pages on this task's device skip decode
+                # AND the host->device copy; only miss ranges decode
+                cached = self._load_video_cached(info, w, node_id, si,
+                                                 rows_l, fmt, tls)
+                if cached is not None:
+                    out[node_id] = cached
+                    continue
                 by_item: Dict[int, List[int]] = {}
                 for r in rows_l:
                     it = desc.item_of_row(r)
@@ -1295,6 +1472,88 @@ class LocalExecutor:
         codec = si.get("codec", "raw")
         return ColumnBatch.from_elements(
             rows_arr, [decode_element(v, codec) for v in vals])
+
+    def _cache_eligible(self, info: A.GraphInfo, node_id: int) -> bool:
+        """Frame-cache eligibility for one video column: the cache holds
+        device-staged pages, so only columns the executor stages for a
+        device kernel qualify (the YUV420 wire's own condition) — and
+        only while the kill switch is up (SCANNER_TPU_FRAME_CACHE=0)."""
+        return _fc.enabled() and self._yuv_device_wire(info, node_id)
+
+    @staticmethod
+    def _keyint_of(si) -> int:
+        """Keyframe-interval estimate for page sizing (pages should map
+        onto GOP-decodable units); 0 = unknown."""
+        vd = si.get("video_meta")
+        ki = getattr(vd, "keyframe_indices", None) if vd is not None \
+            else None
+        if ki is not None and len(ki) > 1:
+            return int(np.median(np.diff(np.asarray(ki, np.int64))))
+        return 0
+
+    def _load_video_cached(self, info: A.GraphInfo, w: TaskItem,
+                           node_id: int, si, rows_l: List[int], fmt: str,
+                           tls) -> Optional[ColumnBatch]:
+        """The cache-consulting flavor of the whole-task video load:
+        plan (pin resident pages on this task's chip), decode only the
+        miss rows, offer them toward page completion, and assemble the
+        task's column as a page-table gather.  None = ineligible or
+        bypassed — the caller runs the direct decode+stage path."""
+        if not self._cache_eligible(info, node_id) or not rows_l:
+            return None
+        desc = si["table"]
+        items = {desc.item_of_row(int(r)) for r in rows_l}
+        if len(items) != 1:
+            # per-item geometry may differ (the ragged-concat path);
+            # pages are per-item, so a multi-item task stays direct
+            return None
+        item = items.pop()
+        start, end = desc.item_bounds(item)
+        local = np.asarray(rows_l, np.int64) - start
+        cache = _fc.cache()
+        plan = cache.plan(w.device, (self._cache_db_key, desc.id),
+                          si["column"], item, fmt, local,
+                          total_rows=end - start,
+                          keyint=self._keyint_of(si))
+        # pin BEFORE decoding: a decode failure routes through
+        # task_failed -> _release_cache, and the finalizer backstops
+        _fc.attach_lease(w, plan.lease)
+        miss = plan.miss_rows
+        hw = plan.hw
+        if len(miss):
+            auto = self._automata(tls, w.job, node_id, si, item,
+                                  output_format=fmt)
+            t0 = time.time()
+            frames = auto.get_frames(miss.tolist())
+            lbl = threading.current_thread().name
+            _M_DECODED.labels(loader=lbl).inc(len(miss))
+            _M_DECODE_SECONDS.labels(loader=lbl).inc(time.time() - t0)
+            hw = (auto.vd.height, auto.vd.width)
+        else:
+            frames = np.zeros((0, 1), np.uint8)
+        if fmt == "yuv420" and not (hw and hw[0]):
+            return None  # no geometry for the convert mark: bypass
+        try:
+            data = cache.assemble(plan, miss, frames, hw=hw)
+        except _fc.CacheBypass:
+            # falling back here re-decodes the miss rows on the direct
+            # path (double decode for this one task).  Acceptable: a
+            # bypass after plan() requires a pinned hit row to vanish,
+            # which pinning exists to prevent — this is a correctness
+            # backstop, not a path with a cost budget.
+            return None
+        convert = (("yuv420", hw[0], hw[1]) if fmt == "yuv420" else None)
+        return ColumnBatch(np.asarray(rows_l, np.int64), data,
+                           convert=convert)
+
+    def _release_cache(self, w: TaskItem) -> None:
+        """Unpin the task's frame-cache pages (evaluation is done with
+        them, or the task failed/was revoked).  Idempotent; leases a
+        dropped TaskItem never reaches release on are backstopped by
+        the finalizer attach_lease installed."""
+        leases, w.cache_leases = w.cache_leases, None
+        for lease in leases or ():
+            lease.release()
 
     def _automata(self, tls, job: JobContext, node_id: int, si,
                   item: int = 0, output_format: str = "rgb24"):

@@ -532,6 +532,14 @@ def op_efficiency() -> List[Dict[str, Any]]:
     return out
 
 
+def status_dict() -> Dict[str, Any]:
+    """The /statusz Efficiency panel: the roofline table plus the
+    compile-ledger summary."""
+    return {"enabled": _ENABLED,
+            "ops": op_efficiency(),
+            "compile": ledger_summary()}
+
+
 def compile_report() -> Dict[str, Any]:
     """One process's full efficiency report: the bounded ledger, its
     summary, and the roofline table."""

@@ -5,8 +5,11 @@ interval traces shipped to the master after a job finishes
 (scanner/util/profiler.h; our util/profiler.py matches it).  This module
 adds the live half: every process keeps one `MetricsRegistry` of
 `Counter`/`Gauge`/`Histogram` series that hot paths update as they run,
-and `Client.metrics()` reads it.  (The HTTP exposition server and
-the cluster merge RPC are not ported yet.)
+and two consumers read it: `Client.metrics()`, and a stdlib-http
+`MetricsServer` serving `/metrics` (Prometheus text exposition),
+`/healthz`, `/readyz`, `/alertz` and `/statusz` (JSON) — off by
+default, enabled per client by `Client(metrics_port=)`.  (The cluster
+merge RPC is not ported yet.)
 
 Design constraints, in order:
 
@@ -553,3 +556,132 @@ def render_prometheus(snapshot: Dict[str, dict]) -> str:
 # ---------------------------------------------------------------------------
 # HTTP endpoint (stdlib only; one daemon thread per server)
 # ---------------------------------------------------------------------------
+
+class MetricsServer:
+    """Serves /metrics (Prometheus text), /healthz, /readyz, /alertz
+    and /statusz (JSON) on a daemon thread.  Off unless a process
+    explicitly constructs one (`Client(metrics_port=)`); port=0 binds an
+    ephemeral port (see `.port`).  Binds loopback by default — the
+    endpoint is unauthenticated and /statusz names db paths.
+
+    /healthz reflects the health engine's roll-up (util/health.py) in
+    its BODY (`status`, reason codes; `ok` flips false on `unhealthy`)
+    but always answers 200 while the process is alive — it is the
+    liveness surface, and alert states are workload facts a restart
+    cannot fix.  /readyz is the gate that goes 503 while the roll-up
+    is `unhealthy` or `ready()` is false (a SIGTERM drain: not-ready,
+    still-alive), so k8s stops routing instead of restarting.
+    /alertz serves the firing alerts plus the full rule table."""
+
+    def __init__(self, port: int = 0,
+                 reg: Optional[MetricsRegistry] = None,
+                 statusz: Optional[Callable[[], dict]] = None,
+                 healthz: Optional[Callable[[], dict]] = None,
+                 host: str = "127.0.0.1",
+                 health: Optional[Callable[[], dict]] = None,
+                 ready: Optional[Callable[[], bool]] = None,
+                 alertz: Optional[Callable[[], dict]] = None):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        reg = reg or registry()
+        outer = self
+        self._statusz = statusz
+        self._healthz = healthz
+        self._health = health
+        self._ready = ready
+        self._alertz = alertz
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # silence per-request stderr spam
+                pass
+
+            def _send(self, code: int, ctype: str, body: bytes) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 (stdlib handler API)
+                path = self.path.split("?", 1)[0]
+                try:
+                    if path == "/metrics":
+                        body = render_prometheus(reg.snapshot()).encode()
+                        self._send(200, "text/plain; version=0.0.4; "
+                                        "charset=utf-8", body)
+                    elif path == "/healthz":
+                        extra = outer._healthz() if outer._healthz else {}
+                        roll = outer._health_rollup()
+                        # ALWAYS 200 while the process can answer:
+                        # /healthz is the LIVENESS surface, and alert
+                        # states (HBM pressure, latency burn) are
+                        # workload facts a restart cannot fix — a 503
+                        # here would restart-loop pods under legitimate
+                        # sustained load.  The body still carries the
+                        # roll-up (ok=false on `unhealthy`) for humans
+                        # and scripts; /readyz is the surface that
+                        # goes 503 so k8s stops ROUTING instead.
+                        ok = roll.get("status", "ok") != "unhealthy"
+                        self._send(200, "application/json",
+                                   json.dumps({"ok": ok, **roll,
+                                               **extra}).encode())
+                    elif path == "/readyz":
+                        roll = outer._health_rollup()
+                        rdy = roll.get("status", "ok") != "unhealthy"
+                        if rdy and outer._ready is not None:
+                            rdy = bool(outer._ready())
+                        self._send(200 if rdy else 503,
+                                   "application/json",
+                                   json.dumps({"ready": rdy, **roll})
+                                   .encode())
+                    elif path == "/alertz":
+                        body = outer._alertz_body()
+                        self._send(200, "application/json",
+                                   json.dumps(body, default=str)
+                                   .encode())
+                    elif path == "/statusz":
+                        st = outer._statusz() if outer._statusz else {}
+                        self._send(200, "application/json",
+                                   json.dumps(st, default=str).encode())
+                    else:
+                        self._send(404, "text/plain", b"not found\n")
+                except Exception as e:  # noqa: BLE001 — a scrape bug
+                    # must not kill the serving thread
+                    try:
+                        self._send(500, "text/plain",
+                                   f"{type(e).__name__}: {e}\n".encode())
+                    except Exception:  # noqa: BLE001
+                        pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="metrics-http",
+            daemon=True)
+        self._thread.start()
+
+    def _health_rollup(self) -> dict:
+        """status + reason codes for /healthz and /readyz: the injected
+        callback, or the process-wide health engine's roll-up (lazy
+        import — health builds on this module)."""
+        try:
+            if self._health is not None:
+                return self._health()
+            from . import health as _health
+            return _health.rollup()
+        except Exception:  # noqa: BLE001 — a health bug must not make
+            # the liveness probe lie about the process being alive
+            return {"status": "ok", "reasons": []}
+
+    def _alertz_body(self) -> dict:
+        try:
+            if self._alertz is not None:
+                return self._alertz()
+            from . import health as _health
+            return _health.alertz_dict()
+        except Exception as e:  # noqa: BLE001
+            return {"status": "ok", "error": f"{type(e).__name__}: {e}"}
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()

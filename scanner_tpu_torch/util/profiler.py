@@ -59,6 +59,9 @@ class Profiler:
         self._all_lists: List[List[Interval]] = []
         self._counters: Dict[str, int] = defaultdict(int)
         self._lock = threading.Lock()
+        # torch.profiler captures recorded around jobs at level >= 2
+        # ({"path": trace_file, "t0", "t1"}; util/torchprof.py)
+        self.device_traces: List[Dict[str, Any]] = []
 
     def _list(self) -> List[Interval]:
         lst = getattr(self._local, "intervals", None)
@@ -114,6 +117,7 @@ class Profiler:
             "level": self.level,
             "max_intervals": self.max_intervals,
             "counters": self.counters,
+            "device_traces": list(self.device_traces),
             "intervals": [
                 {"name": iv.name, "start": iv.start, "end": iv.end,
                  "thread": iv.thread, "args": iv.args}
@@ -135,6 +139,7 @@ class Profiler:
                                 iv["thread"], iv.get("args")))
         for k, v in d["counters"].items():
             p._counters[k] = v
+        p.device_traces = list(d.get("device_traces", []))
         return p
 
 
@@ -187,9 +192,13 @@ class Profile:
     def __init__(self, profilers: List[Profiler]):
         self.profilers = profilers
 
-    def write_trace(self, path: str) -> None:
-        """Emit Chrome trace JSON (chrome://tracing, perfetto) of the
-        host stage spans."""
+    def write_trace(self, path: str, merge_device: bool = True) -> None:
+        """Emit Chrome trace JSON (chrome://tracing, perfetto).
+
+        Device traces captured at profiler_level >= 2 (util/torchprof.py)
+        are merged into the same file — host stage spans and the card's
+        kernel timeline in one view — unless merge_device=False or the
+        trace file is not readable from this host."""
         events = []
         pids = {}
         for p in self.profilers:
@@ -207,6 +216,16 @@ class Profile:
             for thread, tid in tids.items():
                 events.append({"name": "thread_name", "ph": "M", "pid": pid,
                                "tid": tid, "args": {"name": thread}})
+        if merge_device:
+            from .torchprof import DEVICE_PID_BASE, load_device_events
+            base = DEVICE_PID_BASE
+            for p in self.profilers:
+                for rec in p.device_traces:
+                    got = load_device_events(rec, pid_base=base)
+                    events.extend(got)
+                    if got:
+                        # disjoint pid block per capture
+                        base += 1000
         with open(path, "w") as f:
             json.dump({"traceEvents": events}, f)
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from scanner_tpu_torch.kernels import color, cuda_ops
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -438,3 +439,70 @@ def test_chain_graph_replays_match_eager_calls(card):
             assert not torch.equal(outs[0], outs[1])
         finally:
             te.close()
+
+
+def test_frame_cache_pages_on_card(card):
+    """The frame cache's pages are tensors on the card: a task's rows
+    staged through the cache equal direct staging byte for byte, a
+    second plan gathers them from pages on the card (an index tensor on
+    the page's device), pages own their storage, and the card's
+    hbm_pressure label reaches its pool."""
+    import numpy as np
+    from scanner_tpu_torch.engine import framecache as fc
+    from scanner_tpu_torch.engine.batch import staged_device_put
+    dev = torch.device("cuda", torch.cuda.current_device())
+    label = str(dev)
+    c = fc.FrameCache()
+    rng = np.random.RandomState(7)
+    frames = rng.randint(0, 256, (40, 480 * 640 * 3 // 2)).astype(np.uint8)
+    fc.set_page_frames(8)
+    try:
+        rows = np.arange(0, 24)
+        p = c.plan(dev, ("db", 1), "frame", 0, "yuv420", rows, 40)
+        got = c.assemble(p, p.miss_rows, frames[rows], hw=(480, 640))
+        want = staged_device_put(frames[rows], dev, "staging", "t")
+        assert got.device == dev and torch.equal(got, want)
+        p.lease.release()
+        sparse = np.array([1, 5, 9, 17, 22, 30])
+        p2 = c.plan(dev, ("db", 1), "frame", 0, "yuv420", sparse, 40)
+        assert p2.hit_mask.tolist() == [True] * 5 + [False]
+        got = c.assemble(p2, p2.miss_rows, frames[p2.miss_rows])
+        assert torch.equal(got.cpu(), torch.from_numpy(frames[sparse]))
+        p2.lease.release()
+        for page in c._pages.values():
+            assert page.data.device == dev and page.data._base is None
+        st_ = c.status_dict()["devices"][label]
+        assert st_["pages"] == 3 and st_["pinned_bytes"] == 0
+        c.pressure_shrink(label)
+        assert c.status_dict()["devices"][label]["pressure_shrinks"] == 1
+    finally:
+        fc.set_page_frames(0)
+
+
+def test_device_trace_names_histogram_kernel(card, tmp_path):
+    """A level-2 capture around histogram calls made on another thread
+    (as the evaluator makes them) holds the kernel's launches by name,
+    aligned inside the host window."""
+    import threading
+    from scanner_tpu_torch.util import torchprof
+    from scanner_tpu_torch.util.profiler import Profiler
+    x = torch.randint(0, 256, (8, 480, 640, 3), dtype=torch.uint8,
+                      device=card)
+    cuda_ops.histogram_frames(x)
+    torch.cuda.synchronize()
+    prof = Profiler(level=2)
+    with torchprof.device_trace(prof, out_dir=str(tmp_path)):
+        t = threading.Thread(target=lambda: [cuda_ops.histogram_frames(x)
+                                             for _ in range(5)])
+        t.start()
+        t.join()
+        torch.cuda.synchronize()
+    rec = prof.device_traces[0]
+    evs = torchprof.load_device_events(rec)
+    kern = [e for e in evs if e.get("cat") == "kernel"
+            and "hist" in e.get("name", "")]
+    assert len(kern) == 5, [e.get("name") for e in evs
+                            if e.get("cat") == "kernel"]
+    lo, hi = rec["t0"] * 1e6, rec["t1"] * 1e6
+    assert all(lo <= e["ts"] <= hi for e in kern)
+    assert all(e["pid"] >= torchprof.DEVICE_PID_BASE for e in kern)

@@ -49,7 +49,8 @@ from scanner_tpu_torch.models.convert import (load_params, shipped_weights,
 from scanner_tpu_torch.util.profiler import Profiler
 
 from torch_model_checks import (assert_matches, boxes_agree,
-                                random_params, recall, run_on_frames)
+                                random_params, recall, run_on_frames,
+                                stop_process_engine)  # noqa: F401
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 

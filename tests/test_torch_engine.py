@@ -22,8 +22,10 @@ import scanner_tpu_torch as st
 import scanner_tpu_torch.kernels  # noqa: F401
 from scanner_tpu_torch.engine.executor import LocalExecutor
 from scanner_tpu_torch.util.profiler import Profiler
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 N, W, H = 48, 128, 96
+
 
 
 @pytest.fixture(scope="module")
@@ -131,3 +133,42 @@ def test_frame_table_source_matches_video_source(clients):
     ct.run(_graph(ct, st, "config1", "all", "hist_video"),
            st.PerfParams.manual(8, 16), show_progress=False)
     assert _stored(ct._db, "hist_table") == _stored(ct._db, "hist_video")
+
+
+@pytest.mark.parametrize("kind,staged", [("config1", False),
+                                         ("histdiff", False),
+                                         ("config2", True),
+                                         ("histdiff", True)])
+def test_serial_path_matches_pipelined_and_jax(clients, kind, staged,
+                                               monkeypatch):
+    """SCANNER_TPU_NO_PIPELINING=1 runs every stage inline on one thread
+    through the same evaluator; its stored rows equal the pipelined
+    run's and the JAX package's, on the host path and on the tensor
+    path (device staging over CPU tensors, through the frame cache)."""
+    cj, ct = clients
+    perf = dict(work_packet_size=8, io_packet_size=16)
+    name = f"{kind}_{'staged' if staged else 'host'}"
+    with monkeypatch.context() as m:
+        if staged:
+            m.setenv("SCANNER_TPU_YUV_DEVICE", "force")
+        cj.run(_graph(cj, sj, kind, "range", f"{name}_jax"),
+               sj.PerfParams.manual(**perf), show_progress=False)
+
+    def run(out, serial):
+        with monkeypatch.context() as m:
+            if serial:
+                m.setenv("SCANNER_TPU_NO_PIPELINING", "1")
+            if staged:
+                ex = LocalExecutor(ct._db, Profiler(), torch.device("cpu"),
+                                   stage=True)
+                ex.run([_graph(ct, st, kind, "range", out)],
+                       st.PerfParams.manual(**perf))
+            else:
+                ct.run(_graph(ct, st, kind, "range", out),
+                       st.PerfParams.manual(**perf), show_progress=False)
+        return _stored(ct._db, out)
+
+    serial = run(f"{name}_serial", True)
+    piped = run(f"{name}_piped", False)
+    assert len(serial) == 21
+    assert serial == piped == _stored(cj._db, f"{name}_jax")

@@ -29,7 +29,8 @@ from scanner_tpu_torch.models import face as tface
 from scanner_tpu_torch.models.convert import (load_params, shipped_weights,
                                               torch_state)
 
-from torch_model_checks import random_params, run_on_frames
+from torch_model_checks import (random_params, run_on_frames,
+                                stop_process_engine)  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

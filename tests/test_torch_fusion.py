@@ -42,6 +42,7 @@ from scanner_tpu_torch.graph import ops as TO
 from scanner_tpu_torch.graph.streams_dsl import IOGenerator as TIO
 from scanner_tpu_torch.util.metrics import registry
 from scanner_tpu_torch.util.profiler import Profiler
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 N_FRAMES = 50
 W, H = 64, 48

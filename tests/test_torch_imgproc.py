@@ -38,6 +38,7 @@ from scanner_tpu_torch.kernels import cuda_ops
 from scanner_tpu_torch.kernels import image as timage
 from scanner_tpu_torch.kernels import imgproc as timg
 from scanner_tpu_torch.util.profiler import Profiler
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 CPU_J, CPU_T = JConfig(device=DeviceType.CPU), TConfig(device=DeviceType.CPU)
 

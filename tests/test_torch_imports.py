@@ -10,6 +10,7 @@ import sys
 
 import pytest
 import torch
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "scanner_tpu_torch")

@@ -19,6 +19,7 @@ from scanner_tpu_torch.engine.executor import LocalExecutor
 from scanner_tpu_torch.util import faults
 from scanner_tpu_torch.util import memstats as tms
 from scanner_tpu_torch.util.profiler import Profiler
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 
 def test_register_release_watermark():

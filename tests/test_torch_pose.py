@@ -35,6 +35,7 @@ from scanner_tpu_torch.models import pose as tpose
 from scanner_tpu_torch.models import pose_train as ttrain
 from scanner_tpu_torch.models.convert import (load_npz, load_params,
                                               shipped_weights, torch_state)
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 TOL = {"f32": dict(rtol=1e-4, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 DT = {"f32": (jnp.float32, torch.float32),

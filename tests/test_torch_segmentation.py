@@ -45,7 +45,8 @@ from scanner_tpu_torch.models.convert import (load_params, shipped_weights,
 from torch_model_checks import (assert_matches, boxes_agree,
                                 matched_mask_ious,
                                 random_params, run_on_frames,
-                                segment_quality)
+                                segment_quality,
+                                stop_process_engine)  # noqa: F401
 
 F32_TRAINED = dict(rtol=1e-4, atol=1e-4)
 DT = {"f32": (jnp.float32, torch.float32),

@@ -16,6 +16,7 @@ import scanner_tpu_torch.kernels  # noqa: F401
 from scanner_tpu_torch import video as tvideo
 from scanner_tpu_torch.storage import Database as TDatabase
 from scanner_tpu_torch.storage import PosixStorage as TPosix
+from torch_model_checks import stop_process_engine  # noqa: F401
 
 ROWS = [[b"r00", b"r01"], [b"r10", b"r11"], [b"r20", b"r21"]]
 

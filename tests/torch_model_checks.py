@@ -1,16 +1,29 @@
-"""Shared helpers of the port's model tests (not a test module): seeded
-flax parameters, the bf16 comparison bound, and a run of an op through a
-Client over a stored frame table.  The scoring of rows against ground
-truth or against another run lives in the port
-(models/detect_train.py, models/seg_train.py), where chip_smoke.py uses
-it too."""
+"""Shared helpers of the port's tests (not a test module): seeded flax
+parameters, the bf16 comparison bound, a run of an op through a Client
+over a stored frame table, and the fixture that stops the process health
+engine.  The scoring of rows against ground truth or against another run
+lives in the port (models/detect_train.py, models/seg_train.py), where
+chip_smoke.py uses it too."""
 
 import numpy as np
+import pytest
 
 from scanner_tpu_torch.models.detect_train import (  # noqa: F401
     boxes_agree, recall)
 from scanner_tpu_torch.models.seg_train import (  # noqa: F401
     matched_mask_ious, segment_quality)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def stop_process_engine():
+    """Every port Client and pipeline starts the port's process health
+    engine; a test module that imports this fixture stops the engine's
+    sampling thread when the module ends, so it does not tick through
+    later modules of the same worker (some of them timed)."""
+    yield
+    from scanner_tpu_torch.util import health
+    if health._ENGINE is not None:
+        health._ENGINE.stop()
 
 
 def random_params(module, x, seed):
