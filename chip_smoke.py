@@ -64,6 +64,28 @@ Phases, each printed on its own line; any failure exits non-zero:
                   fills);
      serial       config 1 under SCANNER_TPU_NO_PIPELINING=1: rows the
                   same bytes as the pipelined run's;
+     worker_task  config 1 through a cluster worker's task path on
+                  cuda:0 with no RPC: the master's admission (tables
+                  created on the host), then service.WorkerPipeline,
+                  the code a Worker runs each bulk through, fed the
+                  tasks from a local list in place of the master's
+                  queue; rows the same bytes as config 1's, and as many
+                  histogram launches;
+     cluster      a Master and a Worker(device="cuda:0") in this
+                  process, each with a gRPC server on 127.0.0.1 at an
+                  ephemeral port, and Client(master=...): configs 1 and
+                  2 over the same 600 frames (a table of their own
+                  database), rows the same bytes as the main path's;
+                  frames/s, tasks, and the worker's histogram
+                  launches, which must equal the main path's.  Then
+                  a fault drill: a second worker on cuda:0, the first
+                  evaluated task raises (util/faults,
+                  "pipeline.eval:raise:n=1:times=1"), and the job must
+                  finish with the same rows and the retry in
+                  Client.job_status().  Last shutdown_cluster(): every
+                  RPC, scan, heartbeat and work-loop thread must stop.
+                  Skipped, and said so, when the machine lacks grpcio
+                  (decided from the environment before the phase);
   7. pose_serve   PoseDetect(width=8) with the shipped weights over a
                   stored table of 48 x 48 blob frames through
                   Client(device="cuda"): mean localization error under
@@ -154,9 +176,10 @@ frame table, not a video stream (PERF.md, "H100 port").  Everything else
 user's job takes.
 
 The line before the last is a JSON object {"kernels": [...]}; the
-histogram's `launches` counts config 1's run and the golden phase's
-card runs, fused and staged (a graph replay counts the launches the
-graph holds: cuda_ops.count_replay).
+histogram's `launches` counts config 1's run, [worker_task]'s and
+[cluster]'s runs, and the golden phase's card runs, fused and staged (a
+graph replay counts the launches the graph holds:
+cuda_ops.count_replay).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1496,6 +1519,177 @@ def serial_phase(gpu, st, db, n_frames: int) -> dict:
                 stage_s=json.dumps(stages, sort_keys=True))
 
 
+def worker_task_phase(gpu, st, n_frames: int, cuda_ops) -> dict:
+    """Config 1 through a cluster worker's task path on cuda:0, with no
+    RPC: the master's admission on the host (plan the tasks, create the
+    output table), then service.WorkerPipeline — the code a Worker runs
+    each bulk through — joined to the spec and fed the tasks one at a
+    time from a local list, and the master's commit."""
+    import torch
+    from scanner_tpu_torch.engine.executor import LocalExecutor, TaskItem
+    from scanner_tpu_torch.engine.service import WorkerPipeline
+    from scanner_tpu_torch.util.profiler import Profiler
+    db = gpu._db
+    src = gpu.io.Input([st.NamedStream(gpu, "frames")])
+    out = gpu.io.Output(gpu.ops.Histogram(frame=src),
+                        [st.NamedStream(gpu, "config1_worker_task")])
+    perf = st.PerfParams.manual(WORK, IO)
+    LocalExecutor(db, Profiler(), torch.device("cpu")).prepare(
+        [out], perf, st.CacheMode.Overwrite)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pipe = WorkerPipeline(LocalExecutor(db, Profiler(), dev), dev)
+    cuda_ops.reset_counts()
+    t0 = time.time()
+    pipe.join([out], perf, Profiler(node="worker_task"))
+    # the loaders call the source concurrently: a list iterator hands
+    # each task out once
+    todo = iter([TaskItem(job, t, rows) for job in pipe.jobs
+                 for t, rows in enumerate(job.tasks)])
+    done, errors = [], []
+
+    def on_task_error(w, exc):
+        errors.append((w.task_idx, repr(exc)))
+        return True
+
+    pipe.run(lambda: next(todo, None),
+             on_done=lambda w: done.append(w.task_idx),
+             on_task_error=on_task_error)
+    wall = time.time() - t0
+    launches = cuda_ops.histogram_launches
+    pipe.close()
+    check(not errors, f"[worker_task] tasks failed: {errors}")
+    for job in pipe.jobs:
+        for desc, _c, _k, _e in job.sink_tables.values():
+            db.commit_table(desc.id)
+    db.write_megafile()
+    a = stored_items(db, "config1_worker_task")
+    b = stored_items(db, "config1_cuda")
+    check(len(a) == len(b) == n_frames and same_bytes(a, b),
+          "[worker_task] rows differ from config 1's")
+    return dict(tasks=len(done), launches=launches,
+                rows_identical_to_config1=True,
+                fps=round(n_frames / wall, 3))
+
+
+CLUSTER_THREADS = ("rpc-", "master-", "worker-")
+
+
+def cluster_phase(st, frames, work: str, main_rows: dict,
+                  main_launches: dict, cuda_ops, faults) -> dict:
+    """Configs 1 and 2 through an in-process Master and
+    Worker(device="cuda:0") over gRPC on 127.0.0.1, rows and histogram
+    launches against the main path's; a fault drill with a second
+    worker; shutdown_cluster and every server thread stopped."""
+    import threading
+
+    import torch
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    before = set(threading.enumerate())
+    db_path = os.path.join(work, "cluster_db")
+    Database(PosixStorage(db_path)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    dev = f"cuda:{torch.cuda.current_device()}"
+    t0 = time.time()
+    master = Master(db_path=db_path, advertise_host="127.0.0.1")
+    addr = f"127.0.0.1:{master.port}"
+    workers = [Worker(addr, db_path=db_path, device=dev,
+                      advertise_host="127.0.0.1")]
+    client = st.Client(db_path=db_path, master=addr)
+    up_s = time.time() - t0
+    out = {"device": dev, "startup_s": round(up_s, 3)}
+    try:
+        for cfg in (1, 2):
+            cuda_ops.reset_counts()
+            wall, stages = run_config(client, st, cfg, f"cluster{cfg}")
+            s = client.job_status()
+            # where the job's wall goes: the client's root span against
+            # the worker's task spans (one host clock)
+            spans = client._cluster.get_trace(
+                client._cluster.last_bulk_id)["spans"]
+            root = next(d for d in spans if d["name"] == "job")
+            tasks = [d for d in spans if d["name"] == "task"]
+            out[f"config{cfg}_to_first_task_s"] = round(
+                min(d["start"] for d in tasks) - root["start"], 4)
+            out[f"config{cfg}_tasks_span_s"] = round(
+                max(d["end"] for d in tasks)
+                - min(d["start"] for d in tasks), 4)
+            out[f"config{cfg}_after_last_task_s"] = round(
+                root["end"] - max(d["end"] for d in tasks), 4)
+            rows = stored_items(client._db, f"cluster{cfg}")
+            check(len(rows) == len(frames)
+                  and same_bytes(rows, main_rows[cfg]),
+                  f"[cluster] config {cfg} rows differ from the main "
+                  f"path's")
+            check(s["finished"] and s["failed_jobs"] == []
+                  and s["task_failures"] == 0,
+                  f"[cluster] config {cfg} status: {s}")
+            out[f"config{cfg}_fps"] = round(len(frames) / wall, 3)
+            out[f"config{cfg}_tasks"] = s["total_tasks"]
+            out[f"config{cfg}_launches"] = cuda_ops.histogram_launches
+            out[f"config{cfg}_stage_s"] = json.dumps(stages,
+                                                     sort_keys=True)
+            check(cuda_ops.histogram_launches == main_launches[cfg],
+                  f"[cluster] config {cfg}: the worker launched the "
+                  f"histogram kernel {cuda_ops.histogram_launches} "
+                  f"times, the main path {main_launches[cfg]}")
+        # fault drill: a second worker joins; the first evaluated task
+        # raises and is requeued by the master
+        workers.append(Worker(addr, db_path=db_path, device=dev,
+                              advertise_host="127.0.0.1"))
+        deadline = time.time() + 30
+        while client.job_status()["num_workers"] < 2:
+            check(time.time() < deadline, "second worker never joined")
+            time.sleep(0.1)
+        cuda_ops.reset_counts()
+        faults.install("pipeline.eval:raise:exc=runtime:n=1:times=1")
+        try:
+            wall, _stages = run_config(client, st, 1, "cluster_drill")
+            fired = faults.fired("pipeline.eval")
+        finally:
+            faults.clear()
+        s = client.job_status()
+        rows = stored_items(client._db, "cluster_drill")
+        check(fired == 1, f"the drill's fault fired {fired} times")
+        check(s["finished"] and s["failed_jobs"] == []
+              and s["task_failures"] == 1
+              and s["tasks_done"] == s["total_tasks"],
+              f"[cluster] drill status: {s}")
+        check(same_bytes(rows, main_rows[1]),
+              "[cluster] drill rows differ from the main path's")
+        # the fault fires before the failed attempt's evaluation, so
+        # the retry leaves the launch count where config 1 has it
+        check(cuda_ops.histogram_launches == main_launches[1],
+              f"[cluster] drill: {cuda_ops.histogram_launches} histogram "
+              f"launches, the main path {main_launches[1]}")
+        out.update(drill_fps=round(len(frames) / wall, 3),
+                   drill_task_failures=s["task_failures"],
+                   drill_workers=s["num_workers"],
+                   drill_launches=cuda_ops.histogram_launches,
+                   rows_identical_to_main_path=True)
+        notified = client.shutdown_cluster()
+        check(notified == len(workers),
+              f"shutdown_cluster notified {notified} of "
+              f"{len(workers)} workers")
+    finally:
+        client.stop()
+        for w in workers:
+            w.stop()
+        master.stop()
+
+    def left():
+        return sorted(t.name for t in threading.enumerate()
+                      if t not in before
+                      and t.name.startswith(CLUSTER_THREADS))
+    deadline = time.time() + 15
+    while left() and time.time() < deadline:
+        time.sleep(0.05)
+    check(not left(), f"[cluster] threads still running: {left()}")
+    out["threads_stopped"] = True
+    return out
+
+
 def yuv420_wire(frames):
     """(n, h*w*3/2) uint8 planar I420 of RGB frames (BT.601 studio
     range, chroma averaged over 2 x 2): the wire format the loader
@@ -1793,6 +1987,7 @@ def main() -> int:
           msgpack=have_module("msgpack"),
           cloudpickle=have_module("cloudpickle"),
           google_crc32c=have_module("google_crc32c"),
+          grpc=have_module("grpc"),
           main_path_source="stored-frame-table")
 
     # explicit: full f32 in the plain versions' matmuls and in the
@@ -1931,6 +2126,11 @@ def main() -> int:
             card=repr(card))
         phase("serial", **serial_phase(gpu, st, gpu._db, args.frames),
               card=repr(card))
+        wt = worker_task_phase(gpu, st, args.frames, cuda_ops)
+        check(wt["launches"] == launches[1],
+              f"[worker_task] launched the histogram kernel "
+              f"{wt['launches']} times, config 1 {launches[1]}")
+        phase("worker_task", **wt, card=repr(card))
         cpu = st.Client(db_path=db_path, device="cpu")
         for cfg in (1, 2, "shot"):
             run_config(cpu, st, cfg, f"config{cfg}_cpu")
@@ -1961,6 +2161,23 @@ def main() -> int:
               config1_wall_s=round(secs[1], 4),
               config1_stage_s=json.dumps(stages[1], sort_keys=True),
               config2_stage_s=json.dumps(stages[2], sort_keys=True))
+
+        # -- the cluster: a master and a worker over gRPC -------------
+        cluster_launches = 0
+        if have_module("grpc"):
+            from scanner_tpu_torch.util import faults
+            main_rows = {cfg: stored_items(cpu._db, f"config{cfg}_cuda")
+                         for cfg in (1, 2)}
+            cl = cluster_phase(st, frames, work, main_rows, launches,
+                               cuda_ops, faults)
+            cluster_launches = (cl["config1_launches"]
+                                + cl["config2_launches"]
+                                + cl["drill_launches"])
+            phase("cluster", ran=True, **cl,
+                  main_path_config1_fps=round(args.frames / secs[1], 3),
+                  card=repr(card))
+        else:
+            phase("cluster", ran=False, reason="no-grpcio")
 
         # -- the pose model: serve, then train ------------------------
         phase("pose_serve", **pose_serve(st, work, args.seed))
@@ -2062,7 +2279,8 @@ def main() -> int:
         "route": "cuda",
         "source": "scanner_tpu_torch/csrc/histogram.cu",
         "replaces": "scanner_tpu/kernels/pallas_ops.py:33",
-        "launches": launches[1] + gold["histogram_launches"],
+        "launches": launches[1] + wt["launches"] + cluster_launches
+        + gold["histogram_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

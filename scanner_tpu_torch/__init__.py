@@ -5,10 +5,11 @@ graphs (Source -> Ops -> Sink) over tables of keyframe-indexed video streams,
 executed by a runtime that decodes exactly the frames each task needs and
 runs device kernels as hand-written CUDA kernels on an NVIDIA card (H100,
 sm_90a), or on the CPU when the client asks for it.  Ported so far: the
-local single-node path, the histogram / shot-detection stdlib, and the
-pose model (`models`: serving through PoseDetect, training with ring
-attention on the flash-attention kernel, `parallel`); the JAX package
-beside it is the reference.
+single-node path, the image stdlib, the model zoo, the pose model
+(`models`: serving through PoseDetect, training with ring attention on
+the flash-attention kernel, `parallel`), the storage back ends and the
+master/worker cluster (`engine/service.py`); the JAX package beside it
+is the reference.
 """
 
 from .common import (BlobType, BoundaryCondition, CacheMode, DeviceType,

@@ -146,8 +146,9 @@ class PerfParams:
     # the epoch and re-forms on the remaining capacity, strike-free.
     # 0 (default) = ordinary independent task pulls; local
     # (in-process) runs treat any value as a single-host gang and
-    # execute normally.  (Gang scheduling is not ported yet: the port
-    # runs locally only and treats any value as a single-host gang.)
+    # execute normally.  (The gang member half is not ported yet,
+    # ROADMAP A.7: this package's master refuses a bulk that asks for
+    # gang hosts; local runs treat any value as a single-host gang.)
     gang_hosts: int = 0
     # Mesh-partitioned gang evaluation (default): each member loads,
     # decodes and evaluates ONLY its contiguous row shard of every

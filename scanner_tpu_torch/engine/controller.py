@@ -575,6 +575,28 @@ def register_action(name: str, fn: Callable[[dict], Any]) -> None:
     controller().register_action(name, fn)
 
 
+def unregister_action(name: str,
+                      owner: Optional[Callable] = None) -> None:
+    controller().unregister_action(name, owner=owner)
+
+
+# [remediation] autoscale_min/max: the replica bounds a
+# Master(autoscale=True) reads
+_AUTOSCALE_BOUNDS = (1, 8)
+
+
+def set_autoscale_bounds(min_replicas: int, max_replicas: int) -> None:
+    """[remediation] autoscale_min/max config wiring (deployment
+    defaults read by Master(autoscale=True))."""
+    global _AUTOSCALE_BOUNDS
+    _AUTOSCALE_BOUNDS = (max(0, int(min_replicas)),
+                         max(1, int(max_replicas)))
+
+
+def autoscale_bounds() -> Tuple[int, int]:
+    return _AUTOSCALE_BOUNDS
+
+
 def status_dict() -> Dict[str, Any]:
     """Process remediation status; quiet when the controller was never
     created (a scrape must not spin one up as a side effect)."""

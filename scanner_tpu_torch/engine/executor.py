@@ -123,6 +123,8 @@ class JobContext:
     # per sink node id: (table descriptor, column name, codec, encode opts)
     sink_tables: Dict[int, Tuple[md.TableDescriptor, str, str, Dict]]
     fps: float = 30.0
+    # sinks writing through a CustomStorage instead of the database
+    custom_sinks: Dict[int, Any] = field(default_factory=dict)
     skipped: bool = False
     tasks_done: int = 0
     # sparse-read crossover for column loads (PerfParams
@@ -149,6 +151,9 @@ class TaskItem:
     # closed after save/failure
     trace_ctx: Optional[Any] = None
     trace_span: Optional[Any] = None
+    # master-assigned attempt id (cluster mode): distinguishes re-issues
+    # of the same task after a timeout revocation
+    attempt: int = 0
     # when this task became runnable; 0 = unknown (cluster workers leave
     # it unset: the master observes end-to-end latency there)
     enqueued_at: float = 0.0
@@ -280,6 +285,20 @@ class LocalExecutor:
             jobs.append(self._prepare_job(info, j, perf, cache_mode))
         return info, jobs
 
+    def prepare_readonly(self, outputs: Sequence[O.OpNode], perf: PerfParams
+                         ) -> Tuple[A.GraphInfo, List[JobContext]]:
+        """Worker-side preparation: identical analysis but output tables
+        were already created by the master — look them up instead of
+        creating (reference workers re-run DAG analysis, worker.cpp:1013)."""
+        info = A.analyze(outputs)
+        perf = self._estimate_perf(info, perf)
+        jobs: List[JobContext] = []
+        for j in range(info.num_jobs):
+            jobs.append(self._prepare_job(info, j, perf,
+                                          CacheMode.Overwrite,
+                                          create_tables=False))
+        return info, jobs
+
     def _bind_if_unbound(self, stream) -> None:
         """Re-bind a stream that traveled over RPC: __getstate__ nulls its
         client (streams.py), so `_sc is None` — distinct from a missing
@@ -365,7 +384,8 @@ class LocalExecutor:
         return perf
 
     def _prepare_job(self, info: A.GraphInfo, j: int, perf: PerfParams,
-                     cache_mode: CacheMode) -> JobContext:
+                     cache_mode: CacheMode,
+                     create_tables: bool = True) -> JobContext:
         # resolve sources
         source_info: Dict[int, Dict[str, Any]] = {}
         source_rows: Dict[int, int] = {}
@@ -373,6 +393,11 @@ class LocalExecutor:
         for n in info.sources:
             stream: StoredStream = n.extra["streams"][j]
             self._bind_if_unbound(stream)
+            if getattr(stream, "is_custom", False):
+                # pluggable source (reference Source::read extension point)
+                source_info[n.id] = {"custom": stream, "is_video": False}
+                source_rows[n.id] = stream.len()
+                continue
             if isinstance(stream, NamedVideoStream):
                 stream.ensure_ingested()
             if not stream.committed():
@@ -407,13 +432,44 @@ class LocalExecutor:
         # reference client.py:1389-1430)
         sink_names = []
         table_sinks = []
+        custom_sinks: Dict[int, Any] = {}
         for sink in info.sinks:
             out_stream = sink.extra["streams"][j]
             self._bind_if_unbound(out_stream)
+            if getattr(out_stream, "is_custom", False):
+                # CacheMode applies to custom sinks too: stale rows from a
+                # previous (longer) run must not survive an Overwrite
+                if create_tables and out_stream.storage.exists(out_stream):
+                    if cache_mode == CacheMode.Error:
+                        raise JobException(
+                            f"custom output {out_stream.name} already "
+                            f"exists (pass cache_mode=CacheMode.Overwrite)")
+                    if cache_mode == CacheMode.Overwrite:
+                        out_stream.storage.delete_stream(out_stream)
+                custom_sinks[sink.id] = out_stream
+                continue
             table_sinks.append(sink)
             sink_names.append(out_stream.name if hasattr(out_stream, "name")
                               else str(out_stream))
-        if table_sinks and cache_mode == CacheMode.Ignore and all(
+        if not create_tables:
+            sink_tables = {}
+            for sink, name in zip(table_sinks, sink_names):
+                if not self.db.has_table(name):
+                    continue  # job skipped by the master
+                src_col = sink.input_columns()[0]
+                codec = self._codec_for(src_col)
+                desc = self.db.table_descriptor(name)
+                enc = dict(sink.extra.get("encode_options") or {})
+                sink_tables[sink.id] = (desc, desc.columns[0].name, codec,
+                                        enc)
+            return JobContext(job_idx=j, jr=jr, tasks=tasks,
+                          sparsity_threshold=int(perf.load_sparsity_threshold),
+                              source_info=source_info,
+                              sink_tables=sink_tables, fps=fps,
+                              custom_sinks=custom_sinks,
+                              skipped=not sink_tables and not custom_sinks)
+        if table_sinks and not custom_sinks \
+                and cache_mode == CacheMode.Ignore and all(
                 self.db.table_is_committed(nm) for nm in sink_names):
             return JobContext(job_idx=j, jr=jr, tasks=tasks,
                           sparsity_threshold=int(perf.load_sparsity_threshold),
@@ -442,7 +498,8 @@ class LocalExecutor:
         ctx = JobContext(job_idx=j, jr=jr, tasks=tasks,
                           sparsity_threshold=int(perf.load_sparsity_threshold),
                          source_info=source_info, sink_tables=sink_tables,
-                         fps=fps, skipped=not sink_tables)
+                         fps=fps, custom_sinks=custom_sinks,
+                         skipped=not sink_tables and not custom_sinks)
         return ctx
 
     @staticmethod
@@ -493,7 +550,7 @@ class LocalExecutor:
         if w.trace_span is None and w.trace_ctx is not None:
             w.trace_span = _tr.open_span(
                 self.tracer, "task", parent=w.trace_ctx,
-                job=w.job.job_idx, task=w.task_idx)
+                job=w.job.job_idx, task=w.task_idx, attempt=w.attempt)
 
     def _task_scope(self, w: TaskItem):
         """Resume the task span on the calling stage thread, so the
@@ -547,6 +604,9 @@ class LocalExecutor:
                 continue
             for desc, _c, _k, _e in job.sink_tables.values():
                 self.db.commit_table(desc.id)
+            for stream in job.custom_sinks.values():
+                # durability barrier (reference Sink::finished)
+                stream.storage.finished(stream, job.jr.output_rows)
         self.db.write_megafile()
         return jobs
 
@@ -587,6 +647,9 @@ class LocalExecutor:
                 f"pipeline finished {done}/{len(work)} tasks")
 
     def run_pipeline(self, info: A.GraphInfo, source,
+                     on_start=None, on_done=None, on_eval_done=None,
+                     on_task_error=None,
+                     evaluator_factory=None, close_evaluators: bool = True,
                      queue_size: Optional[int] = None,
                      show_progress: bool = False, total: int = 0,
                      precompile: Optional[Tuple[int, int, int]] = None
@@ -594,11 +657,26 @@ class LocalExecutor:
         """Multi-stage streaming pipeline (reference worker.cpp:1467-1724
         load/evaluate/save stage loops): N loaders pull TaskItems from
         `source` and decode, P evaluator instances execute, S savers
-        persist.  `precompile` is the evaluators' ladder warm-up hint
+        persist.  Shared by the local executor (source = task list) and the
+        cluster worker (source = master NextWork pull), so a cluster worker
+        keeps every stage of the node busy instead of running one task at a
+        time.  `precompile` is the evaluators' ladder warm-up hint
         (precompile_hint).
 
-        source() -> TaskItem | None (exhausted); called concurrently from
-        loader threads.  Returns the number of tasks fully saved.
+        source() -> TaskItem | "wait" (retry shortly) | None (exhausted);
+        called concurrently from loader threads.
+        on_start(w) -> bool | None: evaluation-begin hook (cluster:
+        StartedWork RPC); returning False drops the task without
+        evaluating (revoked attempt).  on_eval_done(w): evaluation-complete
+        hook, fired when the task hands off to the save stage (cluster:
+        EvalDone RPC so save-parked tasks stop counting against the
+        NextWork window).  on_done(w): save-complete hook (cluster:
+        FinishedWork RPC).
+        on_task_error(w, exc) -> bool: True = task failure is reported and
+        the pipeline continues (cluster); False/None = abort (local).
+        evaluator_factory(idx, skip_fetch) -> TaskEvaluator: override to
+        reuse evaluators across pipeline entries (cluster worker).
+        Returns the number of tasks fully saved.
 
         SCANNER_TPU_NO_PIPELINING=1 (reference worker.cpp:140
         NO_PIPELINING) degrades to a single-threaded sequential loop —
@@ -613,8 +691,10 @@ class LocalExecutor:
         _controller.ensure_started()
         if os.environ.get("SCANNER_TPU_NO_PIPELINING", "0") not in \
                 ("0", "", "false"):
-            return self._run_serial(info, source, show_progress, total,
-                                    precompile)
+            return self._run_serial(info, source, on_start, on_done,
+                                    on_eval_done, on_task_error,
+                                    evaluator_factory, close_evaluators,
+                                    show_progress, total, precompile)
         qsize = queue_size or 4
         # stateful affinity: kernel state lives in ONE instance's kernels,
         # so a chained run serializes evaluation (the reference pins a
@@ -670,7 +750,8 @@ class LocalExecutor:
             stop.set()
 
         def task_failed(w: TaskItem, e: BaseException) -> None:
-            """Record one task's failure and abort the pipeline."""
+            """Route one task's failure; abort unless the error handler
+            accepts it (cluster mode reports FailedWork and moves on)."""
             if w.trace_span is not None:
                 w.trace_span.add_event("error", type=type(e).__name__,
                                        message=str(e)[:200])
@@ -682,6 +763,8 @@ class LocalExecutor:
             w.elements = None
             w.results = None
             self._release_cache(w)
+            if on_task_error is not None and on_task_error(w, e):
+                return
             _log.exception("task (%d,%d) failed; aborting pipeline",
                            w.job.job_idx, w.task_idx, exc_info=e)
             record_err(e)
@@ -718,6 +801,9 @@ class LocalExecutor:
                         w = source()
                         if w is None:
                             break
+                        if w == "wait":
+                            time.sleep(0.2)
+                            continue
                         assign_instance(w)
                         self._task_trace_begin(w)
                         try:
@@ -750,6 +836,8 @@ class LocalExecutor:
                 record_err(e)
 
         def make_evaluator(idx: int, skip_fetch: bool) -> TaskEvaluator:
+            if evaluator_factory is not None:
+                return evaluator_factory(idx, skip_fetch)
             return TaskEvaluator(info, self.profiler, self.device,
                                  stage=self.stage,
                                  skip_fetch_resources=skip_fetch,
@@ -779,6 +867,14 @@ class LocalExecutor:
                     if w is _SENTINEL:
                         break
                     try:
+                        if on_start is not None and on_start(w) is False:
+                            if w.chunk_abort is not None:
+                                w.chunk_abort.set()  # unblock the loader
+                            # leases the producing loader adds after
+                            # this are released by its abort path
+                            self._release_cache(w)
+                            self._task_trace_end(w, status="revoked")
+                            continue  # revoked attempt: drop silently
                         t0 = time.time()
                         with self._task_scope(w), \
                                 self.profiler.span("evaluate", level=0,
@@ -808,6 +904,8 @@ class LocalExecutor:
                     except Exception as e:  # noqa: BLE001
                         task_failed(w, e)
                         continue
+                    if on_eval_done is not None:
+                        on_eval_done(w)
                     while not stop.is_set():
                         try:
                             save_q.put(w, timeout=0.25)
@@ -820,7 +918,7 @@ class LocalExecutor:
                 fetch_done.set()  # never leave siblings waiting
                 for auto in getattr(fb_tls, "automata", {}).values():
                     auto.close()
-                if te is not None:
+                if te is not None and close_evaluators:
                     te.close()
 
         done_count = [0]
@@ -845,7 +943,13 @@ class LocalExecutor:
                         _M_STAGE_SECONDS.labels(stage="save").inc(
                             time.time() - t0)
                         _M_STAGE_TASKS.labels(stage="save").inc()
+                        # close the span BEFORE on_done: the cluster
+                        # worker's completion hook ships spans then sends
+                        # FinishedWork, so the master holds this task's
+                        # full chain before the bulk can finish
                         self._task_trace_end(w)
+                        if on_done is not None:
+                            on_done(w)
                     except Exception as e:  # noqa: BLE001
                         task_failed(w, e)
                         continue
@@ -893,7 +997,9 @@ class LocalExecutor:
             raise errors[0]
         return done_count[0]
 
-    def _run_serial(self, info: A.GraphInfo, source, show_progress: bool,
+    def _run_serial(self, info: A.GraphInfo, source, on_start, on_done,
+                    on_eval_done, on_task_error, evaluator_factory,
+                    close_evaluators: bool, show_progress: bool,
                     total: int,
                     precompile: Optional[Tuple[int, int, int]] = None
                     ) -> int:
@@ -903,23 +1009,39 @@ class LocalExecutor:
         import types
         tls = types.SimpleNamespace()
         fb_tls = types.SimpleNamespace()  # carry-miss fallback decoders
-        te = TaskEvaluator(info, self.profiler, self.device,
-                           stage=self.stage, precompile=precompile,
-                           instance=0)
+        if evaluator_factory is not None:
+            te = evaluator_factory(0, False)
+        else:
+            te = TaskEvaluator(info, self.profiler, self.device,
+                               stage=self.stage, precompile=precompile,
+                               instance=0)
         done = 0
         try:
             while True:
                 w = source()
                 if w is None:
                     break
+                if w == "wait":
+                    time.sleep(0.2)
+                    continue
                 # single inline instance: staging still targets its
                 # assigned device so serial runs match the threaded path
                 w.instance = 0
                 w.device = assigned_device(self.device, 0)
+                # Error routing mirrors the threaded path stage by stage:
+                # load / evaluate(+on_start) / save(+on_done) failures are
+                # task failures (on_task_error may absorb them), while an
+                # on_eval_done failure — cluster bookkeeping RPC, not task
+                # work — is a pipeline error and propagates (the threaded
+                # evaluator calls it outside its per-task try).
                 self._task_trace_begin(w)
                 try:
                     with self._task_scope(w):
                         self.load_task(info, w, tls)
+                    if on_start is not None and on_start(w) is False:
+                        self._release_cache(w)
+                        self._task_trace_end(w, status="revoked")
+                        continue  # revoked attempt
                     t0 = time.time()
                     with self._task_scope(w), \
                             self.profiler.span("evaluate", level=0,
@@ -946,6 +1068,14 @@ class LocalExecutor:
                     _M_DEV_BUSY.labels(device=lbl).inc(dt)
                     w.elements = None
                     self._release_cache(w)
+                except Exception as e:  # noqa: BLE001
+                    self._fail_inline(w, e)
+                    if on_task_error is not None and on_task_error(w, e):
+                        continue
+                    raise
+                if on_eval_done is not None:
+                    on_eval_done(w)
+                try:
                     t0 = time.time()
                     with self._task_scope(w):
                         with self.profiler.span("save", level=0,
@@ -956,15 +1086,12 @@ class LocalExecutor:
                         time.time() - t0)
                     _M_STAGE_TASKS.labels(stage="save").inc()
                     self._task_trace_end(w)
-                except Exception as e:
-                    if w.trace_span is not None:
-                        w.trace_span.add_event(
-                            "error", type=type(e).__name__,
-                            message=str(e)[:200])
-                    self._task_trace_end(w, status="error")
-                    w.elements = None
-                    w.results = None
-                    self._release_cache(w)
+                    if on_done is not None:
+                        on_done(w)
+                except Exception as e:  # noqa: BLE001
+                    self._fail_inline(w, e)
+                    if on_task_error is not None and on_task_error(w, e):
+                        continue
                     raise
                 done += 1
                 if show_progress:
@@ -973,10 +1100,22 @@ class LocalExecutor:
             for ns in (tls, fb_tls):
                 for auto in getattr(ns, "automata", {}).values():
                     auto.close()
-            te.close()
+            if close_evaluators:
+                te.close()
         if show_progress:
             print()
         return done
+
+    def _fail_inline(self, w: TaskItem, e: BaseException) -> None:
+        """Close a failed task's span and drop what it holds (staged
+        columns, results, cache pins) — the serial path's cleanup."""
+        if w.trace_span is not None:
+            w.trace_span.add_event("error", type=type(e).__name__,
+                                   message=str(e)[:200])
+        self._task_trace_end(w, status="error")
+        w.elements = None
+        w.results = None
+        self._release_cache(w)
 
     # ------------------------------------------------------------------
     # Work-packet streaming (PerfParams.stream_work_packets)
@@ -1460,10 +1599,13 @@ class LocalExecutor:
 
     def _load_plain_source(self, w: TaskItem, node_id: int,
                            rows_l: List[int]) -> ColumnBatch:
-        """Non-video source rows: column loads (shared by the whole-task
-        and per-chunk streaming loaders)."""
+        """Non-video source rows: custom-storage reads or column loads
+        (shared by the whole-task and per-chunk streaming loaders)."""
         si = w.job.source_info[node_id]
         rows_arr = np.asarray(rows_l, np.int64)
+        if "custom" in si:
+            vals = si["custom"].storage.read_rows(si["custom"], rows_l)
+            return ColumnBatch.from_elements(rows_arr, vals)
         from ..storage.streams import decode_element
         desc = si["table"]
         vals = list(self.db.load_column(
@@ -1585,6 +1727,12 @@ class LocalExecutor:
                            detail=f"task={w.job.job_idx},{w.task_idx}")
         start, end = w.output_range
         for sink in info.sinks:
+            if sink.id in w.job.custom_sinks:
+                stream = w.job.custom_sinks[sink.id]
+                stream.storage.write_item(
+                    stream, start,
+                    self._sink_rows(w.results[sink.id], start, end))
+                continue
             if sink.id not in w.job.sink_tables:
                 continue
             desc, col_name, codec, enc_opts = w.job.sink_tables[sink.id]

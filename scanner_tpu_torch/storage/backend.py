@@ -261,8 +261,15 @@ def make_storage(storage_type: str, **kw) -> StorageBackend:
     # `Client(db_path="gs://bucket/db")` just works
     if storage_type == "gcs" or (
             isinstance(db_path, str) and db_path.startswith("gs://")):
-        raise StorageException(
-            "gcs storage is not ported to scanner_tpu_torch yet")
+        from .gcs import GcsStorage
+        if isinstance(db_path, str) and db_path.startswith("gs://"):
+            return GcsStorage.from_url(db_path, client=kw.get("client"))
+        if "bucket" not in kw:
+            raise StorageException(
+                "gcs storage requires a gs://bucket/prefix db_path or an "
+                "explicit bucket= option")
+        return GcsStorage(kw["bucket"], kw.get("prefix", ""),
+                          client=kw.get("client"))
     if storage_type == "posix":
         return PosixStorage(kw["db_path"])
     if storage_type == "memory":

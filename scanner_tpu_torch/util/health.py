@@ -368,8 +368,17 @@ class HealthEngine:
         # hbm_pressure shrink, engine/framecache.py) reacts here
         # instead of polling the firing list.
         self._listeners: List[Callable[[dict], None]] = []
+        # the flight recorder alert transitions land on (None = the
+        # process default tracer; a cluster Worker routes them to its
+        # own, node-labeled recorder)
+        self._tracer: Optional[Any] = None
 
     # -- configuration ------------------------------------------------------
+
+    def set_tracer(self, tracer: Any) -> None:
+        """Route alert transition instants to a specific component's
+        flight recorder (a Worker's tracer labels them with its node)."""
+        self._tracer = tracer
 
     def set_user_rules(self, rules: Sequence[AlertRule]) -> None:
         """Replace the user (config-supplied) rules; the built-in
@@ -736,7 +745,7 @@ class HealthEngine:
             self._last_tick = now
         # transition side effects outside the state lock: the metric
         # children and the tracer ring have locks of their own
-        tracer = _tr.default_tracer()
+        tracer = self._tracer or _tr.default_tracer()
         for t in transitions:
             _M_TRANSITIONS.labels(rule=t["rule"], state=t["state"]).inc()
             _tr.record_instant(tracer, f"alert.{t['state']}",
@@ -876,6 +885,10 @@ def add_listener(fn: Callable[[dict], None]) -> None:
     engine().add_listener(fn)
 
 
+def set_tracer(tracer: Any) -> None:
+    engine().set_tracer(tracer)
+
+
 def _quiet(extra_enabled: bool) -> Dict[str, Any]:
     return {"status": "ok", "reasons": [], "firing": [],
             "enabled": extra_enabled, "rules": 0, "last_tick": 0.0}
@@ -895,6 +908,18 @@ def rollup() -> Dict[str, Any]:
     return {"status": st["status"], "reasons": st["reasons"]}
 
 
+def firing_rules() -> List[str]:
+    """Names of the rules currently firing in this process (sorted,
+    deduped; [] when no engine ever started).  The compact form worker
+    heartbeats advertise every beat so the master can fold worker-side
+    alerts into cluster-level remediation transitions without a second
+    RPC (engine/service.py; engine/controller.py acts on them)."""
+    if _ENGINE is None:
+        return []
+    return sorted({f["rule"] for f in _ENGINE.firing()
+                   if f.get("rule")})
+
+
 def alertz_dict() -> Dict[str, Any]:
     if _ENGINE is None:
         out = _quiet(_ENABLED)
@@ -907,7 +932,8 @@ def merge_status(nodes: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """Fold per-node status dicts into one cluster view: worst-of
     status, node-prefixed reason codes, each node's firing alerts
     stamped with their node.  The ONE place the ok<degraded<unhealthy
-    ordering lives for aggregation (Client.health() uses it)."""
+    ordering lives for aggregation — the master's GetHealth and the
+    local-mode Client.health() both use it."""
     status = "ok"
     reasons: List[str] = []
     firing: List[Dict[str, Any]] = []

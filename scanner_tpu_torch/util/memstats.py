@@ -131,6 +131,18 @@ def _env_top_n() -> Optional[int]:
 _REPORT_TOP_N = _env_top_n() or 10
 
 
+def report_top_n() -> int:
+    return _REPORT_TOP_N
+
+
+def set_report_top_n(n: int) -> None:
+    """[memory] report_top_n config wiring; the SCANNER_TPU_MEMSTATS_TOPN
+    env var (read at import) wins when set."""
+    global _REPORT_TOP_N
+    if _env_top_n() is None:
+        _REPORT_TOP_N = max(1, int(n))
+
+
 def device_label(device: Optional[Any]) -> str:
     """Stable label for a torch device ("cuda:0", "cpu"); "default" for
     no device (host kernels).  The one implementation — the evaluator
@@ -405,6 +417,17 @@ def is_oom(exc: BaseException) -> bool:
     return isinstance(exc, (DeviceOutOfMemory, torch.cuda.OutOfMemoryError))
 
 
+# the flight recorder an OOM report snapshots; components with their own
+# tracer (the cluster Worker) install it so the report shows what THAT
+# process was doing, not the default client tracer
+_tracer: Optional[Any] = None
+
+
+def set_tracer(tracer: Any) -> None:
+    global _tracer
+    _tracer = tracer
+
+
 _report_lock = threading.Lock()
 _last_report: Optional[Dict[str, Any]] = None
 _report_seq = 0
@@ -417,7 +440,8 @@ def memory_report(reason: str = "",
     """One forensic snapshot: device stats, the ledger summary, the
     top-N live entries by bytes (with owning task + trace id), and the
     tail of the flight recorder.  A plain dict."""
-    tracer = _tracing.current_tracer() or _tracing.default_tracer()
+    tracer = _tracing.current_tracer() or _tracer \
+        or _tracing.default_tracer()
     recent = [{"name": d.get("name"), "trace_id": d.get("trace_id"),
                "span_id": d.get("span_id"), "node": d.get("node"),
                "start": d.get("start"), "end": d.get("end"),
@@ -472,6 +496,22 @@ def note_oom(exc: BaseException, site: str,
 def last_report() -> Optional[Dict[str, Any]]:
     with _report_lock:
         return dict(_last_report) if _last_report else None
+
+
+_shipped_seq = 0
+
+
+def take_unshipped_report() -> Optional[Dict[str, Any]]:
+    """The newest report, handed out at most once (a GLOBAL claim-once
+    cursor: report state is process-wide, so when several in-process
+    Workers poll, exactly one ships each report instead of each
+    duplicating it)."""
+    global _shipped_seq
+    with _report_lock:
+        if _last_report is not None and _report_seq > _shipped_seq:
+            _shipped_seq = _report_seq
+            return dict(_last_report)
+        return None
 
 
 def status_dict() -> Dict[str, Any]:

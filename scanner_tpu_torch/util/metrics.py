@@ -8,8 +8,8 @@ adds the live half: every process keeps one `MetricsRegistry` of
 and two consumers read it: `Client.metrics()`, and a stdlib-http
 `MetricsServer` serving `/metrics` (Prometheus text exposition),
 `/healthz`, `/readyz`, `/alertz` and `/statusz` (JSON) — off by
-default, enabled per client by `Client(metrics_port=)`.  (The cluster
-merge RPC is not ported yet.)
+default, enabled per client by `Client(metrics_port=)`.  The cluster
+master merges every node's snapshot (`merge_snapshots`, GetMetrics).
 
 Design constraints, in order:
 

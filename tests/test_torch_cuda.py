@@ -5,9 +5,11 @@ stdlib and the model zoo on the card against the same ops on the CPU:
 resamplers within 1 uint8 count, flow within atol 1e-3, HistDiff over
 Histogram rows (the kernel's id entry) exactly, and the model ops within
 the bounds of chip_smoke.py's [model_serve] (boxes within IoU 0.9 on 95 %
-of frames, cosine >= 0.99, mask IoU >= 0.9 on matched instances).
-Marked `cuda`: they need an NVIDIA card with nvcc (sm_90a) and skip
-elsewhere.  Run on the card with
+of frames, cosine >= 0.99, mask IoU >= 0.9 on matched instances).  And
+a cluster job through a Worker(device="cuda:0") against a CPU worker's
+rows, byte for byte.  Marked `cuda`: they need an NVIDIA card with nvcc
+(sm_90a) and skip elsewhere — except the check that a worker asked for
+a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -506,3 +508,57 @@ def test_device_trace_names_histogram_kernel(card, tmp_path):
     lo, hi = rec["t0"] * 1e6, rec["t1"] * 1e6
     assert all(lo <= e["ts"] <= hi for e in kern)
     assert all(e["pid"] >= torchprof.DEVICE_PID_BASE for e in kern)
+
+
+def test_worker_on_cuda_without_card_raises(tmp_path, monkeypatch):
+    """A cluster worker asked for a card that is not there raises before
+    it binds a server or dials the master (no CPU fallback).  Runs
+    everywhere: the card is hidden."""
+    import threading
+
+    from scanner_tpu_torch.common import ScannerException
+    from scanner_tpu_torch.engine.service import Worker
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = set(threading.enumerate())
+    for dev in ("cuda", "cuda:0"):
+        with pytest.raises(ScannerException, match="no CUDA card"):
+            Worker("localhost:1", db_path=str(tmp_path / "db"), device=dev)
+    assert [t.name for t in threading.enumerate() if t not in before] == []
+
+
+def test_cluster_job_on_card_matches_cpu_cluster(card, tmp_path):
+    """One Histogram job through an in-process master and a
+    Worker(device="cuda:0"), and the same job through a CPU worker's
+    cluster: the same stored bytes, with the kernel launched."""
+    import numpy as np
+
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    rng = np.random.RandomState(3)
+    frames = rng.randint(0, 256, (40, 96, 128, 3)).astype(np.uint8)
+    rows = {}
+    for dev in ("cuda:0", "cpu"):
+        db = str(tmp_path / dev.replace(":", ""))
+        Database(PosixStorage(db)).new_table(
+            "frames", ["frame"], [[f] for f in frames],
+            codecs={"frame": "pickle"})
+        m = Master(db_path=db)
+        w = Worker(f"localhost:{m.port}", db_path=db, device=dev)
+        sc = st.Client(db_path=db, master=f"localhost:{m.port}")
+        try:
+            before = cuda_ops.histogram_launches
+            src = sc.io.Input([st.NamedStream(sc, "frames")])
+            sc.run(sc.io.Output(sc.ops.Histogram(frame=src),
+                                [st.NamedStream(sc, "h")]),
+                   st.PerfParams.manual(8, 16), show_progress=False)
+            if dev != "cpu":
+                assert cuda_ops.histogram_launches > before
+            desc = sc._db.table_descriptor("h")
+            rows[dev] = list(sc._db.load_column("h", desc.columns[0].name))
+            assert sc.shutdown_cluster() == 1
+        finally:
+            sc.stop()
+            w.stop()
+            m.stop()
+    assert len(rows["cpu"]) == 40 and rows["cuda:0"] == rows["cpu"]

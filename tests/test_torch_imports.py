@@ -94,6 +94,27 @@ def test_import_with_jax_blocked():
     assert r.stdout.strip().split(",") == PORTED_OPS
 
 
+CLUSTER_MODULES = ["util.retry", "util.clocksync", "config", "storage.gcs",
+                   "storage.custom", "engine.rpc", "engine.journal",
+                   "engine.shardmap", "engine.gang", "engine.service"]
+
+
+def test_cluster_modules_import_with_jax_blocked():
+    """The storage back ends and the cluster control plane import with
+    jax and the JAX package absent."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['scanner_tpu'] = None; import importlib; "
+            + "; ".join(f"importlib.import_module('scanner_tpu_torch.{m}')"
+                        for m in CLUSTER_MODULES)
+            + "; print(sorted(m for m in sys.modules "
+              "if m.split('.')[0] in ('jax', 'scanner_tpu') "
+              "and sys.modules[m] is not None))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_cuda_client_raises_without_card(tmp_path, monkeypatch):
     import scanner_tpu_torch as st
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
