@@ -86,6 +86,26 @@ Phases, each printed on its own line; any failure exits non-zero:
                   RPC, scan, heartbeat and work-loop thread must stop.
                   Skipped, and said so, when the machine lacks grpcio
                   (decided from the environment before the phase);
+     gang         gang bulks (gang_hosts=2, PerfParams.manual(32, 320):
+                  two tasks a job) through a Master and two
+                  Worker(device="cuda:0") in this process: each task
+                  runs on two member child processes sharing the card
+                  (the card's compute mode must allow a second context),
+                  joined in one gloo group.  Configs 1 and 2 sharded,
+                  config 1 replicated, and a drill whose first member
+                  fails at its collective once (parent-side
+                  "gang.collective:raise:n=1:times=1"): the gang must
+                  re-form at a higher epoch with no strike.  Rows the
+                  same bytes as the main path's, every member result ok
+                  (but the drill's one), each member's histogram
+                  launches (folded from its child) at least one per
+                  non-empty shard, no member left running, every server
+                  thread stopped; frames/s per job, the spawn time and
+                  the medians of the rendezvous, stage, barrier,
+                  collective and assemble phases, gather bytes, decode
+                  rows and epochs (spawn = the member process up to
+                  its entry point, device = its card's context).
+                  Skipped with [cluster];
   7. pose_serve   PoseDetect(width=8) with the shipped weights over a
                   stored table of 48 x 48 blob frames through
                   Client(device="cuda"): mean localization error under
@@ -176,8 +196,10 @@ frame table, not a video stream (PERF.md, "H100 port").  Everything else
 user's job takes.
 
 The line before the last is a JSON object {"kernels": [...]}; the
-histogram's `launches` counts config 1's run, [worker_task]'s and
-[cluster]'s runs, and the golden phase's card runs, fused and staged (a
+histogram's `launches` counts config 1's run, [worker_task]'s,
+[cluster]'s and [gang]'s runs (a gang member's launches, made in its
+child process, are folded into this process's count by its worker), and
+the golden phase's card runs, fused and staged (a
 graph replay counts the launches the graph holds:
 cuda_ops.count_replay).
 The last line is {"ok": true, "device": {...}}.
@@ -468,11 +490,12 @@ def stored_items(db, table: str):
 
 
 def run_config(client, st, config, out: str, level: int = 1,
-               job_ids: list = None):
+               job_ids: list = None, perf=None):
     """Run config 1, config 2 or "shot" (HistDiff -> ShotBoundary) into
-    table `out` at profiler level `level`; returns (wall seconds, the
-    job's stage seconds {load, evaluate, save, evaluate:<op>}); appends
-    the job id to `job_ids` when given."""
+    table `out` at profiler level `level` (with `perf`, default
+    PerfParams.manual(WORK, IO)); returns (wall seconds, the job's stage
+    seconds {load, evaluate, save, evaluate:<op>}); appends the job id
+    to `job_ids` when given."""
     src = client.io.Input([st.NamedStream(client, "frames")])
     if config == "shot":
         col = client.ops.ShotBoundary(diff=client.ops.HistDiff(frame=src),
@@ -481,7 +504,7 @@ def run_config(client, st, config, out: str, level: int = 1,
         col = client.ops.Histogram(frame=src)
     if config == 2:
         col = client.ops.HistogramDelta(hist=col)
-    perf = st.PerfParams.manual(WORK, IO)
+    perf = perf or st.PerfParams.manual(WORK, IO)
     perf.profiler_level = level
     t0 = time.time()
     job = client.run(client.io.Output(col, [st.NamedStream(client, out)]),
@@ -1690,6 +1713,214 @@ def cluster_phase(st, frames, work: str, main_rows: dict,
     return out
 
 
+def compute_mode() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 \
+        and r.stdout.strip() else "unknown"
+
+
+def member_children() -> list:
+    """Live gang member runners (python -m scanner_tpu_torch.engine.gang)
+    started by this process."""
+    me, out = os.getpid(), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == me and b"scanner_tpu_torch.engine.gang" in cmd:
+            out.append(int(pid))
+    return out
+
+
+def median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return (xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2) \
+        if n else None
+
+
+def gang_phase(st, frames, work: str, main_rows: dict, cuda_ops,
+               faults, dev: str) -> dict:
+    """Gang bulks (PerfParams.gang_hosts=2) through an in-process Master
+    and two Worker(device=dev) over gRPC on 127.0.0.1: each task
+    runs on a gang of two member child processes sharing the card, each
+    with its own CUDA context.  Configs 1 and 2 sharded, config 1
+    replicated ([gang] sharded=false on the master), and a drill whose
+    first member run fails at its collective once.  Rows against the
+    main path's, every member result, histogram launches per member
+    (folded from the children), no member left running, every server
+    thread stopped."""
+    import threading
+
+    from scanner_tpu_torch.engine import gang
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    mode = compute_mode()
+    check(mode not in ("Exclusive_Process", "Exclusive_Thread",
+                       "Prohibited"),
+          f"[gang] the card's compute mode {mode} forbids a second "
+          f"process's context: two members cannot share it")
+    before = set(threading.enumerate())
+    db_path = os.path.join(work, "gang_db")
+    Database(PosixStorage(db_path)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    runs = []
+    spawn = gang.spawn_member
+
+    def recording(request, **kw):
+        t0 = time.time()
+        res = spawn(request, **kw)
+        runs.append({"pid": request["process_id"],
+                     "gang": request["gang_id"], "epoch": request["epoch"],
+                     "task": request["task_idx"],
+                     "sharded": request["sharded"], "ok": res.get("ok"),
+                     "stage": res.get("stage"), "error": res.get("error"),
+                     "phases": dict(res.get("phases") or {}),
+                     "shard": dict(res.get("shard") or {}),
+                     "launches": int((res.get("cuda_ops") or {})
+                                     .get("histogram_launches", 0)),
+                     "wall_s": time.time() - t0})
+        return res
+
+    gang.spawn_member = recording
+    sharded0 = gang.sharded_enabled()
+    out = {"compute_mode": mode, "device": dev, "members": 2,
+           "perf": "manual(32,320)"}
+    master = Master(db_path=db_path, advertise_host="127.0.0.1")
+    addr = f"127.0.0.1:{master.port}"
+    workers = [Worker(addr, db_path=db_path, device=dev,
+                      advertise_host="127.0.0.1") for _ in range(2)]
+    client = st.Client(db_path=db_path, master=addr)
+    all_runs, launches = [], 0
+    try:
+        deadline = time.time() + 30
+        while client.job_status()["num_workers"] < 2:
+            check(time.time() < deadline, "[gang] workers never joined")
+            time.sleep(0.1)
+        for name, cfg, sharded, plan in (
+                ("config1", 1, True, None), ("config2", 2, True, None),
+                ("config1_replicated", 1, False, None),
+                ("drill", 1, True, "gang.collective:raise:n=1:times=1")):
+            gang.set_sharded(sharded)
+            cuda_ops.reset_counts()
+            runs.clear()
+            strikes0 = sum(series_sum(
+                "scanner_tpu_blacklist_strikes_total").values())
+            if plan:
+                faults.install(plan)
+            try:
+                wall, _stages = run_config(
+                    client, st, cfg, f"gang_{name}",
+                    perf=st.PerfParams.manual(32, 320, gang_hosts=2))
+                fired = faults.fired("gang.collective") if plan else 0
+            finally:
+                faults.clear()
+            s = client.job_status()
+            rows = stored_items(client._db, f"gang_{name}")
+            check(len(rows) == len(frames)
+                  and same_bytes(rows, main_rows[cfg]),
+                  f"[gang] {name} rows differ from the main path's")
+            check(s["finished"] and s["failed_jobs"] == [],
+                  f"[gang] {name} status: {s}")
+            check(not member_children(),
+                  f"[gang] {name}: member runners still alive")
+            ok = [r for r in runs if r["ok"]]
+            failed = [r for r in runs if not r["ok"]]
+            strikes = sum(series_sum(
+                "scanner_tpu_blacklist_strikes_total").values()) - strikes0
+            check(strikes == 0, f"[gang] {name}: {strikes} strikes")
+            if plan:
+                # the armed member's gang aborts; its partner's run
+                # fails at the same (gang, epoch) or is reaped
+                lost = {(r["gang"], r["epoch"]) for r in failed}
+                check(fired == 1 and len(lost) == 1
+                      and any(r["stage"] == "collective" for r in failed),
+                      f"[gang] drill: fault fired {fired}, failed "
+                      f"members {failed}")
+                retried = [r for r in ok if r["task"] == failed[0]["task"]]
+                check(retried and min(r["epoch"] for r in retried)
+                      > failed[0]["epoch"],
+                      f"[gang] drill: task {failed[0]['task']} never "
+                      f"re-formed at a higher epoch: {runs}")
+                out["drill_failed_stages"] = json.dumps(
+                    sorted(r["stage"] for r in failed))
+            else:
+                check(not failed, f"[gang] {name} member failures: "
+                                  f"{failed}")
+            check(len(ok) == 2 * 2,
+                  f"[gang] {name}: {len(ok)} member runs completed, "
+                  f"want 2 tasks x 2 members")
+            for r in ok:
+                nonempty = (not r["sharded"]) or r["shard"].get("rows", 0)
+                check(not nonempty or r["launches"] >= 1,
+                      f"[gang] {name}: member {r['pid']} of task "
+                      f"{r['task']} launched the histogram kernel "
+                      f"{r['launches']} times")
+            check(cuda_ops.histogram_launches
+                  == sum(r["launches"] for r in runs),
+                  f"[gang] {name}: folded launches "
+                  f"{cuda_ops.histogram_launches} != the members' "
+                  f"{sum(r['launches'] for r in runs)}")
+            launches += cuda_ops.histogram_launches
+            all_runs += runs
+            out[f"{name}_fps"] = round(len(frames) / wall, 3)
+            out[f"{name}_wall_s"] = round(wall, 3)
+            out[f"{name}_launches"] = cuda_ops.histogram_launches
+            out[f"{name}_member_launches"] = json.dumps(
+                [r["launches"] for r in runs])
+            out[f"{name}_epochs"] = json.dumps(
+                sorted({r["epoch"] for r in runs}))
+            if sharded:
+                out[f"{name}_gather_bytes"] = sum(
+                    r["shard"].get("gather_bytes", 0) for r in ok
+                    if r["pid"] == 0)
+                out[f"{name}_decode_rows"] = json.dumps(
+                    [r["shard"].get("decode_rows") for r in ok])
+        for ph in ("spawn", "device", "rendezvous", "stage", "barrier",
+                   "collective", "assemble"):
+            vals = [r["phases"][ph] for r in all_runs
+                    if ph in r["phases"]]
+            out[f"{ph}_median_s"] = round(median(vals), 4) \
+                if vals else None
+        out["member_wall_median_s"] = round(
+            median([r["wall_s"] for r in all_runs]), 4)
+        out["member_runs"] = len(all_runs)
+        out["launches"] = launches
+        out["rows_identical_to_main_path"] = True
+        notified = client.shutdown_cluster()
+        check(notified == len(workers),
+              f"[gang] shutdown_cluster notified {notified} of "
+              f"{len(workers)} workers")
+    finally:
+        gang.spawn_member = spawn
+        gang.set_sharded(sharded0)
+        client.stop()
+        for w in workers:
+            w.stop()
+        master.stop()
+
+    def left():
+        return sorted(t.name for t in threading.enumerate()
+                      if t not in before
+                      and t.name.startswith(CLUSTER_THREADS))
+    deadline = time.time() + 15
+    while left() and time.time() < deadline:
+        time.sleep(0.05)
+    check(not left(), f"[gang] threads still running: {left()}")
+    check(not member_children(), "[gang] member runners still alive")
+    out["threads_stopped"] = True
+    return out
+
+
 def yuv420_wire(frames):
     """(n, h*w*3/2) uint8 planar I420 of RGB frames (BT.601 studio
     range, chroma averaged over 2 x 2): the wire format the loader
@@ -2176,8 +2407,16 @@ def main() -> int:
             phase("cluster", ran=True, **cl,
                   main_path_config1_fps=round(args.frames / secs[1], 3),
                   card=repr(card))
+            # -- gangs: two member processes sharing the card ---------
+            gg = gang_phase(st, frames, work, main_rows, cuda_ops, faults,
+                            f"cuda:{torch.cuda.current_device()}")
+            cluster_launches += gg["launches"]
+            phase("gang", ran=True, **gg,
+                  main_path_config1_fps=round(args.frames / secs[1], 3),
+                  card=repr(card))
         else:
             phase("cluster", ran=False, reason="no-grpcio")
+            phase("gang", ran=False, reason="no-grpcio")
 
         # -- the pose model: serve, then train ------------------------
         phase("pose_serve", **pose_serve(st, work, args.seed))

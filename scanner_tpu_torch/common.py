@@ -135,7 +135,7 @@ class PerfParams:
     # docs/robustness.md §Gang scheduling): >0 asks the master to
     # co-schedule each task onto a GANG of up to this many live
     # workers instead of handing it to one puller — the members
-    # rendezvous into one distributed runtime (member 0 is the
+    # rendezvous into one torch.distributed group (member 0 is the
     # coordinator), each evaluates the task REPLICATED (deterministic
     # redundancy, not a sharded speedup — this knob buys failure
     # semantics, N× the compute), stages its per-host shard of the
@@ -146,9 +146,7 @@ class PerfParams:
     # the epoch and re-forms on the remaining capacity, strike-free.
     # 0 (default) = ordinary independent task pulls; local
     # (in-process) runs treat any value as a single-host gang and
-    # execute normally.  (The gang member half is not ported yet,
-    # ROADMAP A.7: this package's master refuses a bulk that asks for
-    # gang hosts; local runs treat any value as a single-host gang.)
+    # execute normally.
     gang_hosts: int = 0
     # Mesh-partitioned gang evaluation (default): each member loads,
     # decodes and evaluates ONLY its contiguous row shard of every

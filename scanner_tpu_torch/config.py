@@ -143,15 +143,34 @@ def default_config() -> Dict[str, Any]:
             "journal_rotate_records": 256,
         },
         "gang": {
-            # the JAX package's gang-scheduled multi-host execution
-            # (its engine/gang.py).  Parsed and ignored by this
-            # package: its master refuses a bulk with
-            # PerfParams.gang_hosts > 0 (ROADMAP A.7), so nothing here
-            # reads these keys.
+            # gang-scheduled multi-host execution (engine/gang.py,
+            # docs/robustness.md §Gang scheduling): a bulk with
+            # PerfParams.gang_hosts > 0 co-schedules each task onto a
+            # gang of live workers that rendezvous into one
+            # torch.distributed process group.  On by default (inert
+            # unless a bulk asks); SCANNER_TPU_GANG=0 overrides per
+            # process.
             "enabled": True,
+            # bound on the process-group rendezvous at gang start —
+            # a lost member must not pin the survivors in initialize
+            # forever; SCANNER_TPU_GANG_INIT_TIMEOUT overrides.
             "init_timeout_s": 60,
+            # how long the master waits for a full gang_hosts pool
+            # before forming on whatever capacity HAS pooled (the
+            # loss-tolerant re-form path);
+            # SCANNER_TPU_GANG_FORM_TIMEOUT overrides.
             "form_timeout_s": 5,
+            # mesh-partitioned gang evaluation: each member evaluates
+            # only its row shard and member 0 assembles the output
+            # over the interconnect (~N× per-gang throughput); off =
+            # the replicated N×-redundant evaluation.  The master's
+            # value decides per gang; SCANNER_TPU_GANG_SHARDED
+            # overrides per process.
             "sharded": True,
+            # stencil boundary rows exchange between neighbor members
+            # over the gang's process group (parallel/halo.py) instead of each member
+            # decoding past its shard edge; SCANNER_TPU_GANG_HALO
+            # overrides per process.
             "halo_exchange": True,
         },
         "control": {
@@ -345,6 +364,42 @@ class Config:
         (SCANNER_TPU_JOURNAL_ROTATE overrides per process)."""
         return int(self.config.get("robustness", {}).get(
             "journal_rotate_records", 256))
+
+    @property
+    def gang_enabled(self) -> bool:
+        """Gang-scheduled multi-host execution (the deployment
+        default; SCANNER_TPU_GANG overrides per process)."""
+        return bool(self.config.get("gang", {}).get("enabled", True))
+
+    @property
+    def gang_init_timeout_s(self) -> float:
+        """Rendezvous bound for gang members
+        (SCANNER_TPU_GANG_INIT_TIMEOUT overrides per process)."""
+        return float(self.config.get("gang", {}).get("init_timeout_s",
+                                                     60))
+
+    @property
+    def gang_form_timeout_s(self) -> float:
+        """How long the master holds out for a full gang before
+        forming on the pooled capacity
+        (SCANNER_TPU_GANG_FORM_TIMEOUT overrides per process)."""
+        return float(self.config.get("gang", {}).get("form_timeout_s",
+                                                     5))
+
+    @property
+    def gang_sharded(self) -> bool:
+        """Mesh-partitioned gang evaluation — members evaluate only
+        their row shard (the deployment default;
+        SCANNER_TPU_GANG_SHARDED overrides per process)."""
+        return bool(self.config.get("gang", {}).get("sharded", True))
+
+    @property
+    def gang_halo_exchange(self) -> bool:
+        """Stencil boundary rows exchange between neighbor members
+        over the mesh instead of decoding redundantly (the deployment
+        default; SCANNER_TPU_GANG_HALO overrides per process)."""
+        return bool(self.config.get("gang", {}).get("halo_exchange",
+                                                    True))
 
     @property
     def control_shards(self) -> int:

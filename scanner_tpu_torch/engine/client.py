@@ -406,11 +406,15 @@ class Client:
                 "bulk_id": self._cluster.last_bulk_id}
             return job_id
         prof = Profiler(node=f"job{job_id}")
+        # gang mode needs a cluster to co-schedule across: a local
+        # (in-process) run IS a single host, so gang_hosts degrades to
+        # ordinary execution — the degenerate 1-host gang
         if int(getattr(perf, "gang_hosts", 0) or 0):
             import logging
             logging.getLogger("scanner_tpu_torch.engine").info(
                 "gang_hosts=%d requested on a local run: executing as "
-                "a single-host job", perf.gang_hosts)
+                "a single-host job (gang scheduling needs "
+                "Client(master=...))", perf.gang_hosts)
         # instance-count resolution: explicit kwarg > PerfParams >
         # explicit Client(pipeline_instances=) — any of which wins as
         # given, including 1 — and only a fully-unset count resolves to
@@ -511,13 +515,13 @@ class Client:
 
 def _apply_config(cfg) -> None:
     """Install a config's process-wide defaults (tracing, clock sync,
-    memory accounting, frame cache, fusion, alerts, journal, control
-    shards, remediation, fault plan).  Each SCANNER_TPU_* env
+    memory accounting, frame cache, fusion, alerts, journal, gang,
+    control shards, remediation, fault plan).  Each SCANNER_TPU_* env
     var, read at import, is the per-process override and wins."""
     env = os.environ.get
     from ..graph import fusion
     from ..util import clocksync, faults, memstats, tracing
-    from . import framecache, journal, shardmap
+    from . import framecache, gang, journal, shardmap
     if not env("SCANNER_TPU_TRACING"):
         tracing.set_enabled(cfg.tracing_enabled)
     if not env("SCANNER_TPU_CLOCKSYNC"):
@@ -539,6 +543,16 @@ def _apply_config(cfg) -> None:
         journal.set_enabled(cfg.journal_enabled)
     if not env("SCANNER_TPU_JOURNAL_ROTATE"):
         journal.set_rotate_records(cfg.journal_rotate_records)
+    if not env("SCANNER_TPU_GANG"):
+        gang.set_enabled(cfg.gang_enabled)
+    if not env("SCANNER_TPU_GANG_INIT_TIMEOUT"):
+        gang.set_init_timeout_s(cfg.gang_init_timeout_s)
+    if not env("SCANNER_TPU_GANG_FORM_TIMEOUT"):
+        gang.set_form_timeout_s(cfg.gang_form_timeout_s)
+    if not env("SCANNER_TPU_GANG_SHARDED"):
+        gang.set_sharded(cfg.gang_sharded)
+    if not env("SCANNER_TPU_GANG_HALO"):
+        gang.set_halo(cfg.gang_halo_exchange)
     if not env("SCANNER_TPU_CONTROL_SHARDS"):
         shardmap.set_num_shards(cfg.control_shards)
     if not env("SCANNER_TPU_REMEDIATION"):

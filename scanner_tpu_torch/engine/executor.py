@@ -169,7 +169,16 @@ class TaskItem:
     chunk_plans: Optional[List[A.TaskPlan]] = None
     chunk_q: Optional["queue.Queue"] = None
     chunk_abort: Optional[threading.Event] = None
-    # rows the loader actually decoded/read for this task
+    # sharded gang members (engine/gang.py): per source node, the global
+    # rows this member does NOT decode — its neighbors own them and the
+    # post-load halo exchange delivers them over the gang's process
+    # group; halo_fill is the hook that runs that exchange and splices
+    # the received rows into the loaded elements before device staging
+    halo_drop: Optional[Dict[int, Any]] = None
+    halo_fill: Optional[Any] = None
+    # rows the loader actually decoded/read for this task (set by
+    # _load_task after any halo restriction) — the per-member decode
+    # accounting the sharded-gang metrics report
     decode_rows: int = 0
     # frame-cache leases pinning the pages this task gathers from
     # (engine/framecache.py); released when evaluation finishes or the
@@ -1106,6 +1115,68 @@ class LocalExecutor:
             print()
         return done
 
+    def run_single_task(self, info: A.GraphInfo, w: TaskItem,
+                        save: bool = True,
+                        span_attrs: Optional[Dict[str, Any]] = None
+                        ) -> TaskItem:
+        """Run ONE task stage-inline on this thread: load → evaluate
+        (→ save), on this executor's device.  The gang-member path
+        (engine/gang.py): a gang task executes inside a dedicated member
+        process, synchronized with its peers by collectives rather than
+        by the streaming pipeline, and only member 0 saves — so the
+        member defers `save` until the cross-host agreement check passes
+        (`save_results` finishes the job).  `span_attrs` land on the
+        task span (gang id / epoch / member rank, so per-host stragglers
+        stay attributable under the gang root span).  Returns `w` with
+        `.results` populated."""
+        import types
+        tls = types.SimpleNamespace()
+        fb_tls = types.SimpleNamespace()
+        if w.trace_span is None and w.trace_ctx is not None:
+            w.trace_span = _tr.open_span(
+                self.tracer, "task", parent=w.trace_ctx,
+                job=w.job.job_idx, task=w.task_idx, attempt=w.attempt,
+                **(span_attrs or {}))
+        w.instance = 0
+        w.device = assigned_device(self.device, 0)
+        te = None
+        try:
+            with self._task_scope(w):
+                self.load_task(info, w, tls)
+            te = TaskEvaluator(info, self.profiler, self.device,
+                               stage=self.stage, instance=0)
+            with self._task_scope(w), \
+                    self.profiler.span("evaluate", level=0,
+                                       task=w.task_idx,
+                                       job=w.job.job_idx):
+                w.results = self._evaluate_with_fallback(
+                    info, te, w, fb_tls)
+            self._prefetch_results(w)
+            w.elements = None
+            self._release_cache(w)
+            if save:
+                self.save_results(info, w)
+            return w
+        except Exception as e:  # noqa: BLE001
+            self._fail_inline(w, e)
+            raise
+        finally:
+            for auto in getattr(tls, "automata", {}).values():
+                auto.close()
+            if te is not None:
+                te.close()
+
+    def save_results(self, info: A.GraphInfo, w: TaskItem) -> None:
+        """Persist a task's evaluated results and close its span — the
+        deferred half of `run_single_task(save=False)`, run by a gang's
+        single writer (member 0) only after the collective agreement
+        check passed."""
+        with self._task_scope(w):
+            with self.profiler.span("save", level=0, task=w.task_idx,
+                                    job=w.job.job_idx):
+                self._save_task(info, w)
+        self._task_trace_end(w)
+
     def _fail_inline(self, w: TaskItem, e: BaseException) -> None:
         """Close a failed task's span and drop what it holds (staged
         columns, results, cache pins) — the serial path's cleanup."""
@@ -1472,9 +1543,28 @@ class LocalExecutor:
                 job_idx=w.job.job_idx, task_idx=w.task_idx, carry=carry)
             if chain is not None:
                 chain.planned(w.task_idx, w.plan.carry_watermarks)
+            # sharded gang members: rows owned by neighbor shards are
+            # dropped from this member's decode plan BEFORE loading —
+            # the loader and frame cache never see them — and restored
+            # afterwards so downstream row math stays whole-plan; the
+            # halo_fill hook then splices the exchanged boundary rows
+            # into the loaded batches (engine/gang.py _make_halo_filler)
+            restore: Dict[int, Any] = {}
+            if w.halo_drop:
+                for nid, drop in w.halo_drop.items():
+                    rows = w.plan.source_rows.get(nid)
+                    if rows is None or not len(drop):
+                        continue
+                    restore[nid] = rows
+                    w.plan.source_rows[nid] = \
+                        rows[~np.isin(rows, drop)]
             w.decode_rows = int(sum(
                 len(r) for r in w.plan.source_rows.values()))
             w.elements = self._load_sources(info, w, tls)
+            if restore:
+                w.plan.source_rows.update(restore)
+            if w.halo_fill is not None:
+                w.halo_fill(info, w)
             self._prestage_device_columns(info, w)
         return w
 

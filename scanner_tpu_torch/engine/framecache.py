@@ -172,6 +172,28 @@ def set_page_frames(n: int) -> None:
 _MAX_FILL_PAGES = 64
 
 
+# a member evaluating only rows [lo, hi) of every task tags its pages
+# with its shard identity, so page keys are scoped under
+# (host-shard, device) — a re-formed gang at a different num_processes
+# (whose shard boundaries moved) can never gather a stale page built
+# under the old layout, and residency per member is 1/N by construction
+# (the shard plan only ever touches shard rows).  None = unsharded
+# (the default single-host / replicated identity).
+_HOST_SHARD: Optional[str] = None
+
+
+def set_host_shard(tag: Optional[str]) -> None:
+    """Scope this process's cache pages under a shard identity (sharded
+    gang member children call this once before evaluating; pass None to
+    clear)."""
+    global _HOST_SHARD
+    _HOST_SHARD = str(tag) if tag else None
+
+
+def host_shard() -> Optional[str]:
+    return _HOST_SHARD
+
+
 # cache identity for a Database backend: (root, process-unique seq).
 # The seq — minted once per backend OBJECT via a weak map — is what
 # makes the key collision-proof: a database deleted and re-created at
@@ -267,7 +289,7 @@ class Plan:
                  lease: Lease, hw: Optional[Tuple[int, int]]):
         self.device = device        # torch device (or None = the host)
         self.dev = dev              # its label
-        self.skey = skey            # (table_id, column, item, fmt)
+        self.skey = skey            # ([shard,] table_id, column, item, fmt)
         self.page_frames = page_frames
         self.rows = rows            # item-local, sorted
         self.total_rows = total_rows
@@ -369,7 +391,11 @@ class FrameCache:
         same-shaped tables of different databases in one process;
         recreated tables mint fresh ids, which is the staleness story."""
         dev = _ms.device_label(device)
-        skey = (table, column, int(item), fmt)
+        # page identity is (host-shard, device, table, column, item,
+        # fmt, page): sharded gang members never share pages across
+        # shard layouts (set_host_shard above)
+        skey = (_HOST_SHARD, table, column, int(item), fmt) \
+            if _HOST_SHARD else (table, column, int(item), fmt)
         rows = np.asarray(rows, np.int64)
         lease = Lease(self)
         hit = np.zeros(len(rows), bool)

@@ -6,7 +6,7 @@ shares (no new dependency, works on posix/GCS/memory alike):
 
 **Write-ahead bulk journal** (`BulkJournal`) — between periodic
 checkpoints the master appends every task-completion / strike /
-blacklist / commit / admission event as a checksummed
+blacklist / commit / admission / gang-lifecycle event as a checksummed
 record into
 rotated segment objects under the master's generation directory
 (`jobs/g<gen>/journal/seg_*.bin`).  A completion is acknowledged to
@@ -67,13 +67,26 @@ CONFIG_KEYS = ("journal_enabled", "journal_rotate_records")
 # token outlives its bulk only until 64 newer admissions displaced it)
 TOKEN_RING = 64
 
-# record types a master journals (engine/service.py
-# _apply_journal_records replays them).  The gang pair is the JAX
-# package's gang-in-flight state (`gang` at formation, `gang_abort` at
-# teardown); this package schedules no gangs (ROADMAP A.7), so its
-# replay passes over them.
+# record types the master's recovery replay understands (engine/
+# service.py _apply_journal_records).  The gang pair journals gang-in-
+# flight state — `gang` at formation, `gang_abort` at teardown — whose
+# replay restores the (gang_id, epoch) fence's high-water mark across
+# a master failover: the successor's first formation mints a strictly
+# higher epoch, so a pre-failover gang's late completion NACKs instead
+# of double-committing (docs/robustness.md §Gang scheduling).
 RECORD_TYPES = ("admit", "done", "strike", "transient", "blacklist",
                 "commit", "gang", "gang_abort")
+
+
+def gang_epoch_high_water(records) -> int:
+    """Highest gang epoch any journaled gang record carries (0 when
+    none) — the floor a recovering master's next formation must mint
+    above.  Tooling/test twin of the in-recovery fold."""
+    high = 0
+    for r in records:
+        if isinstance(r, dict) and r.get("t") in ("gang", "gang_abort"):
+            high = max(high, int(r.get("e", 0) or 0))
+    return high
 
 _M_GENERATION = _mx.registry().gauge(
     "scanner_tpu_master_generation",

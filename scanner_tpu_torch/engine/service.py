@@ -23,15 +23,15 @@ Device placement (the PyTorch/CUDA port): the master runs no device op
 plan tasks and create tables.  A worker runs every task on its
 `device` ("cuda" by default, "cuda:N" or "cpu", resolved by
 `evaluate.resolve_device`, so asking for a card without one raises).
-Gang scheduling is ROADMAP A.7 (engine/gang.py): the master refuses a
-bulk with `PerfParams.gang_hosts > 0` at admission, and workers pull
-only independent tasks.
+A bulk with `PerfParams.gang_hosts > 0` runs each task on a gang of
+workers (engine/gang.py): the master forms the gang and fences it with
+a `(gang_id, epoch)` pair, and each member runs in a child process of
+its worker, on the worker's device.
 
-The file follows the JAX package's engine/service.py class for class,
-less gang scheduling: its RPCs, journal records and checkpoint keys are
-the JAX package's, without the gang ones.  `WorkerPipeline` is the
-worker's task path below its RPCs, split out of `Worker` so that it
-runs from a local task source too.
+The file follows the JAX package's engine/service.py class for class:
+its RPCs, journal records and checkpoint keys are the JAX package's.
+`WorkerPipeline` is the worker's task path below its RPCs, split out of
+`Worker` so that it runs from a local task source too.
 """
 
 from __future__ import annotations
@@ -134,6 +134,13 @@ RPC_CONTRACTS = {
     "ShipMemoryReport": {"timeout_s": 30.0, "idempotent": False},
     "GetMemoryReport":  {"timeout_s": 30.0, "idempotent": True},
     "GetCompileLedger": {"timeout_s": 30.0, "idempotent": True},
+    # gang control plane (engine/gang.py): both mutate scheduling
+    # state (ack bookkeeping / abort+requeue), so both are fenced —
+    # and additionally fenced by (gang_id, epoch): a stale-epoch
+    # report answers {"gang_stale": True} instead of being applied.
+    # scanner-check SC313 pins every Gang* entry to this shape.
+    "GangMemberDone":   {"timeout_s": 30.0, "idempotent": False},
+    "GangFailed":       {"timeout_s": 30.0, "idempotent": False},
     "Shutdown":         {"timeout_s": PING_TIMEOUT, "idempotent": True},
 }
 
@@ -147,7 +154,7 @@ RPC_CONTRACTS = {
 SHARD_ROUTED_RPCS = (
     "RegisterWorker", "NewJob", "NextWork", "StartedWork",
     "FinishedWork", "FinishedWorkBatch", "FailedWork", "PostProfile",
-    "ShipSpans", "ShipMemoryReport",
+    "ShipSpans", "ShipMemoryReport", "GangMemberDone", "GangFailed",
 )
 
 # OOM forensic reports retained on the master (newest win): enough for
@@ -163,6 +170,9 @@ MAX_MEMORY_REPORTS = 16
 # (the straggler aggregates, which are tiny, are kept for all history)
 MAX_BULK_SPANS = 500_000
 STRAGGLER_TOP_N = 10
+# per-gang straggler attribution rows retained per bulk (newest last);
+# part of the straggler aggregates, so they survive compaction
+MAX_GANG_SKEW_ROWS = 16
 SPAN_HISTORY_BULKS = 4
 
 _mlog = get_logger("master")
@@ -240,13 +250,18 @@ def _is_transient_failure(exc: BaseException) -> bool:
     import grpc
 
     from ..common import StorageException
+    from ..parallel.distributed import RendezvousError
     if _memstats.is_oom(exc):
         # device memory exhaustion: the pressure came from co-scheduled
         # work, not this task — requeue strike-free (the failed attempt
         # freed its staged buffers on the way out)
         return True
+    # a failed process-group rendezvous means the PEER SET changed
+    # (a member died, a coordinator moved) — the task is fine; the
+    # gang re-forms on the remaining capacity strike-free
     return isinstance(exc, (StorageException, rpc.RpcError, grpc.RpcError,
-                            ConnectionError, TimeoutError))
+                            ConnectionError, TimeoutError,
+                            RendezvousError))
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +274,10 @@ class _WorkerInfo:
     address: str
     last_seen: float
     active: bool = True
+    # host:port this worker's gang member runner would serve the
+    # gang's TCPStore at if elected member 0 (advertised at
+    # registration; empty = the worker cannot coordinate a gang)
+    gang_address: str = ""
     # spot/preemptible reclaim notice seen on a heartbeat: assignment
     # to this worker is FENCED (NextWork answers wait) while its drain
     # completes — requeues of whatever it cannot finish stay strike-free
@@ -268,6 +287,32 @@ class _WorkerInfo:
     # controller (stage_backpressure lives in worker processes; the
     # master's local health engine cannot see it)
     firing: Set[str] = field(default_factory=set)
+
+
+@dataclass
+class _Gang:
+    """One co-scheduled task group (docs/robustness.md §Gang
+    scheduling): the member set, its rendezvous wiring, and the
+    (gang_id, epoch) fence every gang RPC must present.  Lives in
+    `_BulkJob.gangs` from formation until member 0's FinishedWork is
+    accepted or the gang aborts — after either, every late report with
+    this (gang_id, epoch) is NACKed (`gang_stale`)."""
+
+    gang_id: int
+    epoch: int
+    key: Tuple[int, int]                 # the (job, task) the gang runs
+    attempt: int
+    members: List[int]                   # worker ids; members[0] is the
+    coordinator: str                     # member 0's gang address
+    formed_at: float
+    roles_handed: Set[int] = field(default_factory=set)
+    acks: Set[int] = field(default_factory=set)   # non-0 members done
+    # sharded gangs: member rank -> its shard digest, recorded from
+    # GangMemberDone acks that beat the writer's FinishedWork; the
+    # commit fold cross-checks them against the digests the writer
+    # assembled from (count_shard_fold)
+    shard_digests: Dict[int, int] = field(default_factory=dict)
+    trace_parent: str = ""               # gang root span traceparent
 
 
 @dataclass
@@ -398,6 +443,44 @@ class _BulkJob:
     # checkpoint-restored completions by seconds-since-recovery would
     # report a completion rate off by orders of magnitude.
     done_at_start: int = 0
+    # gang scheduling (PerfParams.gang_hosts > 0): each task is
+    # co-scheduled onto a gang of up to gang_hosts live workers
+    # instead of answering independent pulls.  `gang_epoch` is the
+    # bulk-wide monotonic fence — minted fresh per formation, bumped
+    # again on every abort, restored >= its journaled high-water mark
+    # across a master failover — so a completion from a superseded
+    # gang can never double-commit.  `gang_forming` is the pool of
+    # workers waiting for the next formation (joined-order), and
+    # `gang_aborted_keys` marks tasks whose re-formation counts as a
+    # reform in the metrics.
+    gang_hosts: int = 0
+    # mesh-partitioned gang evaluation (engine/gang.py sharded members):
+    # decided once per bulk from PerfParams.gang_sharded AND the
+    # master's [gang] sharded config, and carried on every role reply so
+    # all members of a gang run the same mode; gang_halo rides along
+    # the same way ([gang] halo_exchange)
+    gang_sharded: bool = True
+    gang_halo: bool = True
+    next_gang_id: int = 0
+    gang_epoch: int = 0
+    gangs: Dict[int, _Gang] = field(default_factory=dict)
+    gang_by_task: Dict[Tuple[int, int], int] = field(default_factory=dict)
+    gang_forming: Dict[int, float] = field(default_factory=dict)
+    gang_forming_since: float = 0.0
+    gang_aborted_keys: Set[Tuple[int, int]] = field(default_factory=set)
+    # scan-loop watchdog clock: since when the fleet has had live
+    # workers but ZERO gang-capable ones (no gang_address — e.g. the
+    # whole fleet runs SCANNER_TPU_GANG=0) while this gang bulk still
+    # has work; 0 = capable capacity exists.  Past no_workers_timeout
+    # the bulk fails loudly instead of waiting forever on formations
+    # that can never happen.
+    gang_incapable_since: float = 0.0
+    # gangs retired by an accepted member-0 completion (gang_id ->
+    # epoch, insertion-bounded): a surviving member's ack that lands
+    # AFTER the single writer committed is acknowledged quietly
+    # instead of counting as a stale-epoch NACK — it is the normal
+    # tail of a healthy gang, not fence traffic
+    gang_retired: Dict[int, int] = field(default_factory=dict)
     # cross-host time plane (util/clocksync.py): node -> the worker's
     # most recent advertised {offset, uncertainty, at}, refreshed from
     # heartbeats and from the clock field on every ShipSpans /
@@ -405,6 +488,18 @@ class _BulkJob:
     # master time with it (unless raw_clocks / rebase disabled); the
     # barrier-skew fold corrects member arrival stamps with it.
     clock_offsets: Dict[str, dict] = field(default_factory=dict)
+    # (gang_id, epoch) -> in-flight barrier-arrival fold: per-member
+    # offset-corrected arrival stamps from absorbed gang.barrier spans.
+    # Once all `num` members reported, the max-min skew is observed
+    # into the skew histogram and an attribution row is appended.
+    gang_arrivals: Dict[Tuple[int, int], dict] = field(
+        default_factory=dict)
+    # bounded ring of per-gang straggler attribution rows (newest
+    # last): gang/epoch, the slowest member's node, its lag vs the
+    # median arrival, and whether the gang step was barrier-bound or
+    # collective-bound.  Part of the straggler aggregates — survives
+    # compaction.
+    gang_skew_rows: List[dict] = field(default_factory=list)
     # retention: when this bulk ages out of the last-N history ring its
     # heavy scheduling state (done set, task_rows, per-task maps, the
     # span store) is dropped and status queries serve from this frozen
@@ -444,8 +539,16 @@ class _BulkJob:
         self.stage_seen = {"load": set(), "evaluate": set()}
         self.sticky_worker = {}
         self.sticky_cur = {}
-        # raw spans are gone, so the per-node rebase map goes with them
+        self.gangs = {}
+        self.gang_by_task = {}
+        self.gang_forming = {}
+        self.gang_retired = {}
+        self.gang_aborted_keys = set()
+        # raw spans are gone, so the per-node rebase map and any
+        # incomplete barrier folds go with them; the finished
+        # gang_skew_rows are aggregates and stay
         self.clock_offsets = {}
+        self.gang_arrivals = {}
         # profiles are deliberately KEPT: GetProfiles / Client.trace
         # device lanes retained them for all history before compaction
         # existed, and they are per-worker (bounded per bulk), not
@@ -598,6 +701,8 @@ class Master:
             "GetTrace": self._rpc_get_trace,
             "ShipMemoryReport": self._fenced(
                 self._rpc_ship_memory_report),
+            "GangMemberDone": self._fenced(self._rpc_gang_member_done),
+            "GangFailed": self._fenced(self._rpc_gang_failed),
             "GetMemoryReport": self._rpc_get_memory_report,
             "GetCompileLedger": self._rpc_get_compile_ledger,
             "Shutdown": self._rpc_shutdown,
@@ -784,7 +889,8 @@ class Master:
             wid = self._next_worker_id
             self._next_worker_id += 1
             self._workers[wid] = _WorkerInfo(
-                wid, req.get("address", ""), time.time())
+                wid, req.get("address", ""), time.time(),
+                gang_address=str(req.get("gang_address", "") or ""))
         _mlog.info("worker %d registered (%s)", wid, req.get("address", ""))
         return {"worker_id": wid}
 
@@ -794,16 +900,20 @@ class Master:
         requeue anything it still held (a drained worker finished its
         in-flight tasks first, so normally nothing)."""
         wid = req.get("worker_id")
+        recs: List[dict] = []
         with self._lock:
             w = self._workers.get(wid)
             if w is not None and w.active:
                 w.active = False
-                # deactivation is volatile liveness; the queue belongs
-                # to the successor once this master is superseded
+                # deactivation is volatile liveness, but the requeue
+                # counts transient failures (strike/blacklist
+                # escalation — replayed durable state): a superseded
+                # master must not keep reshaping it (SC402)
                 if not self._fence.is_set():
-                    self._requeue_worker_tasks(wid)
+                    self._requeue_worker_tasks(wid, recs=recs)
                 _M_DRAINS.inc()
                 _mlog.info("worker %d deregistered (drain)", wid)
+        self._journal_append(recs)
         return {"ok": True}
 
     def _rpc_heartbeat(self, req: dict) -> dict:
@@ -816,8 +926,8 @@ class Master:
         wid = req["worker_id"]
         if req.get("slim"):
             # the heartbeat fold (engine/shardmap.py): a multi-shard
-            # worker sends ONE full beat (clock sync, firing alerts)
-            # to the shard whose bulk it is working and
+            # worker sends ONE full beat (clock sync, firing alerts,
+            # gang liveness) to the shard whose bulk it is working and
             # a slim liveness-only beat to every other shard — per-
             # (worker, shard) RPC volume stays one beat, but the
             # payload fan-out is coalesced away
@@ -833,6 +943,7 @@ class Master:
             _shardmap.count_coalesced("Heartbeat")
             return {"reregister": False, "active_bulk": active,
                     "generation": self.generation, "slim": True}
+        recs: List[dict] = []
         with self._lock:
             w = self._workers.get(wid)
             if w is None or not w.active:
@@ -841,13 +952,28 @@ class Master:
             w.last_seen = time.time()
             # preemption notice: fence assignment NOW — the worker's
             # drain completes on its own clock, but no new task may be
-            # handed to reclaimed capacity in the meantime
+            # handed to reclaimed capacity in the meantime.  A gang
+            # this worker belongs to cannot survive the reclaim: abort
+            # it immediately so the epoch bumps and the task re-forms
+            # on capacity that is staying.
             if req.get("preempting") and not w.preempting:
                 w.preempting = True
                 _M_PREEMPT_NOTICES.inc()
                 _mlog.warning(
                     "worker %d advertised preemption: assignment "
                     "fenced, drain in progress", wid)
+                # the abort mutates durable gang state (journaled):
+                # a fenced master marks the worker preempting (volatile
+                # assignment fence) but leaves gang scheduling to the
+                # successor that owns the bulk now (SC402)
+                cur = self._bulk
+                if cur is not None and not cur.finished \
+                        and not self._fence.is_set():
+                    for g in list(cur.gangs.values()):
+                        if wid in g.members:
+                            self._abort_gang_locked(cur, g, "preempted",
+                                                    recs)
+                    cur.gang_forming.pop(wid, None)
             # firing alert names ride every beat (tiny: a sorted list
             # of rule-name strings) — the scan loop folds them into
             # cluster-level remediation transitions
@@ -855,9 +981,20 @@ class Master:
             bulk = self._bulk
             active = bulk.bulk_id \
                 if bulk and not bulk.finished else None
+            # gang liveness rides the beat: the worker compares its
+            # in-flight member runs against this list and reaps a
+            # runner whose gang was aborted underneath it — survivors
+            # blocked in a dead collective tear down in seconds
+            # instead of burning the whole member timeout
+            gang_ids = None
+            if bulk is not None and bulk.gang_hosts \
+                    and not bulk.finished:
+                gang_ids = sorted(
+                    g.gang_id for g in bulk.gangs.values()
+                    if wid in g.members)
             # the worker's advertised clock estimate: publish the
-            # gauges and retain per node for GetTrace rebase (node
-            # label matches its span stamps)
+            # gauges and retain per node for GetTrace rebase / the
+            # barrier-skew fold (node label matches its span stamps)
             est = req.get("clock")
             if est and _clocksync.enabled():
                 node = f"worker{wid}"
@@ -865,11 +1002,16 @@ class Master:
                 if bulk is not None and not bulk.compacted:
                     bulk.clock_offsets[node] = dict(est)
                 _clocksync.publish(node, est)
+        # a preemption-triggered gang abort is journaled like any other
+        # scheduling mutation (outside the lock, before the ack)
+        self._journal_append(recs)
         # the generation rides every beat so workers latch the newest
         # master even between assignments (Heartbeat itself stays
         # idempotent — no fence guard needed to read liveness)
         reply = {"reregister": False, "active_bulk": active,
                  "generation": self.generation}
+        if gang_ids is not None:
+            reply["gangs"] = gang_ids
         # four-timestamp stamps for the NTP exchange; echoing t0 keeps
         # the worker side stateless across beats
         if "t0" in req:
@@ -927,8 +1069,6 @@ class Master:
             outputs = spec["outputs"]
             perf: PerfParams = spec["perf"]
             cache_mode = CacheMode(spec["cache_mode"])
-            if _gang.requested(perf):
-                return {"error": _gang.REFUSAL}
             # admission only plans tasks and creates tables: the master
             # runs no device op
             ex = LocalExecutor(self.db, device=torch.device("cpu"))
@@ -936,11 +1076,16 @@ class Master:
                 info, jobs = ex.prepare(outputs, perf, cache_mode)
             except Exception as e:  # noqa: BLE001
                 return {"error": f"{type(e).__name__}: {e}"}
+            gang_hosts = max(0, int(getattr(perf, "gang_hosts", 0) or 0))
             sticky = bool(getattr(perf, "stateful_task_affinity", False)
                           and any(n.spec is not None
                                   and getattr(n.spec, "unbounded_state",
                                               False)
                                   for n in info.ops))
+            if gang_hosts:
+                # a gang task is one synchronized program, not a chain
+                # of per-worker state carries: gang mode wins
+                sticky = False
             with self._lock:
                 bulk = _BulkJob(
                     bulk_id=self._next_bulk_id,
@@ -950,7 +1095,11 @@ class Master:
                     task_timeout=float(getattr(perf, "task_timeout", 0.0)),
                     checkpoint_frequency=int(
                         getattr(perf, "checkpoint_frequency", 0) or 0),
-                    sticky=sticky,
+                    sticky=sticky, gang_hosts=gang_hosts,
+                    gang_sharded=bool(
+                        getattr(perf, "gang_sharded", True))
+                    and _gang.sharded_enabled(),
+                    gang_halo=_gang.halo_enabled(),
                     admission_token=token,
                     trace_id=trace_id, trace_parent=trace_parent)
                 self._next_bulk_id += 1
@@ -1009,6 +1158,17 @@ class Master:
         wid = req["worker_id"]
         bulk_id = req["bulk_id"]
         window = int(req.get("window") or 0)
+        recs: List[dict] = []
+        try:
+            return self._next_work_impl(wid, bulk_id, window, recs)
+        finally:
+            # a gang formation is a scheduling mutation: its journal
+            # record is durable before the role reply acks it (the
+            # lock is released by the time this runs)
+            self._journal_append(recs)
+
+    def _next_work_impl(self, wid, bulk_id: int, window: int,
+                        recs: List[dict]) -> dict:
         with self._lock:
             self._touch_worker(wid)
             bulk = self._bulk
@@ -1023,6 +1183,11 @@ class Master:
                 # stops pulls too — this covers the notice->drain race
                 # and externally-observed preemptions)
                 return {"status": "wait"}
+            if bulk.gang_hosts > 0:
+                # gang mode: pulls feed the formation pool instead of
+                # popping independent tasks (docs/robustness.md §Gang
+                # scheduling)
+                return self._gang_next_work_locked(bulk, wid, recs)
             if window:
                 # per-worker in-flight window: don't let one node's
                 # loaders hoard the queue while its siblings idle
@@ -1104,9 +1269,216 @@ class Master:
                 return {"status": "wait"}
             return {"status": "done"}
 
-    # shared escalation counters (one policy for RPC failures and
-    # timeout revocations — the journal record shapes and caps must
-    # never drift between those paths)
+    # -- gang scheduling (engine/gang.py, docs/robustness.md) ---------------
+
+    def _gang_next_work_locked(self, bulk: _BulkJob, wid: int,
+                               recs: List[dict]) -> dict:
+        """One gang-mode pull: hand the caller its role in a formed
+        gang, or pool it toward the next formation.  A gang forms when
+        `gang_hosts` eligible workers have pooled — or, after
+        `[gang] form_timeout_s`, on whatever capacity HAS pooled (the
+        loss-tolerant path: a bulk that lost hosts mid-flight re-forms
+        smaller instead of waiting for capacity that is gone).  Caller
+        holds self._lock."""
+        info_w = self._workers.get(wid)
+        if info_w is None or not info_w.gang_address:
+            # a worker that cannot rendezvous (SCANNER_TPU_GANG=0 /
+            # [gang] enabled=false: it registered with no gang
+            # address) must never become a member — handing it a gang
+            # reply would make it run the task as an ordinary pull and
+            # break the single-writer accounting
+            return {"status": "wait"}
+        for g in bulk.gangs.values():
+            if wid in g.members:
+                if wid not in g.roles_handed:
+                    return self._gang_role_reply_locked(bulk, g, wid)
+                return {"status": "wait"}  # its member run is in flight
+        # prune pool entries whose workers died/preempted since joining
+        for fw in list(bulk.gang_forming):
+            info = self._workers.get(fw)
+            if info is None or not info.active or info.preempting:
+                bulk.gang_forming.pop(fw, None)
+        if not bulk.q_has_work():
+            if bulk.outstanding or bulk.gangs:
+                return {"status": "wait"}
+            return {"status": "done"}
+        now = time.time()
+        if wid not in bulk.gang_forming:
+            if not bulk.gang_forming:
+                bulk.gang_forming_since = now
+            bulk.gang_forming[wid] = now
+        full = len(bulk.gang_forming) >= bulk.gang_hosts
+        if not full and now - bulk.gang_forming_since \
+                < _gang.form_timeout_s():
+            return {"status": "wait"}
+        # elect members in join order; the coordinator (member 0) must
+        # advertise a gang address, and the election ROTATES with the
+        # epoch about to be minted — a member whose advertised port
+        # went bad (reclaimed since the startup probe) costs one
+        # aborted epoch, not an unbounded streak of re-forms electing
+        # the same broken coordinator
+        pool = sorted(bulk.gang_forming,
+                      key=lambda k: bulk.gang_forming[k])
+        members = pool[:bulk.gang_hosts]
+        able = [m for m in members
+                if self._workers.get(m) is not None
+                and self._workers[m].gang_address]
+        if not able:
+            return {"status": "wait"}  # nobody can coordinate yet
+        lead = able[(bulk.gang_epoch + 1) % len(able)]
+        members.remove(lead)
+        members.insert(0, lead)
+        coord = self._workers[lead].gang_address
+        key = self._gang_pop_task_locked(bulk)
+        if key is None:
+            return {"status": "wait"}
+        attempt = bulk.next_attempt
+        bulk.next_attempt += 1
+        bulk.gang_epoch += 1
+        gid = bulk.next_gang_id
+        bulk.next_gang_id += 1
+        g = _Gang(gang_id=gid, epoch=bulk.gang_epoch, key=key,
+                  attempt=attempt, members=members, coordinator=coord,
+                  formed_at=now)
+        bulk.gangs[gid] = g
+        bulk.gang_by_task[key] = gid
+        for m in members:
+            bulk.gang_forming.pop(m, None)
+            bulk.held[m] = bulk.held.get(m, 0) + 1
+        bulk.gang_forming_since = now if bulk.gang_forming else 0.0
+        # the gang's timeout clock starts at formation (started=True:
+        # a formed gang is executing, not queue-parked)
+        bulk.outstanding[key] = (members[0], now, attempt, True, False)
+        reform = key in bulk.gang_aborted_keys
+        _gang.count_formed(reform)
+        _gang.set_epoch(bulk.gang_epoch)
+        # the gang root span: every member's task span parents under it
+        # so per-host stragglers inside one gang stay attributable
+        sp = _tracing.open_span(
+            self.tracer, "gang",
+            parent=_tracing.SpanContext(bulk.trace_id,
+                                        bulk.trace_parent),
+            gang=gid, epoch=g.epoch, job=key[0], task=key[1],
+            members=len(members)) if bulk.trace_id else None
+        if sp is not None:
+            _tracing.close_span(self.tracer, sp)
+            g.trace_parent = sp.context().traceparent()
+        recs.append({"t": "gang", "g": gid, "e": g.epoch,
+                     "j": key[0], "k": key[1],
+                     "members": list(members)})
+        _mlog.info(
+            "gang %d formed at epoch %d for task (%d,%d): members %s, "
+            "coordinator %s%s", gid, g.epoch, key[0], key[1], members,
+            coord, " (re-form)" if reform else "")
+        if wid in g.members:
+            return self._gang_role_reply_locked(bulk, g, wid)
+        # the pool can briefly exceed gang_hosts (a pull that found
+        # only blacklisted-job work left a full pool behind): this
+        # caller's join-order slot fell outside the elected set — it
+        # stays pooled for the NEXT formation instead of crashing the
+        # role lookup
+        return {"status": "wait"}
+
+    @staticmethod
+    def _gang_pop_task_locked(bulk: _BulkJob):
+        """Round-robin task pop for gang formation (no stickiness —
+        gang bulks never chain state across workers)."""
+        for _ in range(len(bulk.job_rr)):
+            j = bulk.job_rr.popleft()
+            dq = bulk.queue.get(j)
+            if not dq or j in bulk.blacklisted_jobs:
+                bulk.queue.pop(j, None)
+                continue
+            got = None
+            while dq and got is None:
+                t = dq.popleft()
+                if (j, t) not in bulk.done:
+                    got = (j, t)
+            if dq:
+                bulk.job_rr.append(j)
+            else:
+                bulk.queue.pop(j, None)
+            if got is not None:
+                return got
+        return None
+
+    def _gang_role_reply_locked(self, bulk: _BulkJob, g: _Gang,
+                                wid: int) -> dict:
+        g.roles_handed.add(wid)
+        return {"status": "gang", "gang_id": g.gang_id,
+                "epoch": g.epoch,
+                "process_id": g.members.index(wid),
+                "num_processes": len(g.members),
+                "coordinator": g.coordinator,
+                "job_idx": g.key[0], "task_idx": g.key[1],
+                "attempt": g.attempt,
+                "task_timeout": bulk.task_timeout,
+                # the MASTER decides the evaluation mode per gang and
+                # every member reads it off this reply — members can
+                # never disagree about sharding mid-gang (a single-host
+                # gang degenerates to the replicated body either way)
+                "sharded": bool(bulk.gang_sharded
+                                and len(g.members) > 1),
+                "halo": bool(bulk.gang_halo),
+                "traceparent": g.trace_parent or None}
+
+    def _abort_gang_locked(self, bulk: _BulkJob, g: _Gang, reason: str,
+                           recs: List[dict], strike: bool = False,
+                           error: str = "") -> None:
+        """Tear one gang down: bump the epoch (the fence — every late
+        report from this gang now NACKs), release member bookkeeping,
+        and requeue the task for a fresh gang on the remaining
+        capacity.  Aborts are revocations, not task failures: they
+        count against the transient cap, never a blacklist strike —
+        unless `strike` (a member reported a DETERMINISTIC task error),
+        which routes through the ordinary failure path.  Idempotent
+        per gang.  Caller holds self._lock."""
+        if bulk.gangs.get(g.gang_id) is not g:
+            return
+        bulk.gangs.pop(g.gang_id, None)
+        bulk.gang_by_task.pop(g.key, None)
+        bulk.gang_aborted_keys.add(g.key)
+        bulk.gang_epoch += 1
+        _gang.set_epoch(bulk.gang_epoch)
+        _gang.count_aborted(reason)
+        recs.append({"t": "gang_abort", "g": g.gang_id, "e": g.epoch})
+        self._unassign(bulk, g.key)
+        for m in g.members[1:]:
+            if m not in g.acks:
+                self._dec_held(bulk, m)
+        _mlog.warning(
+            "gang %d (epoch %d, task (%d,%d)) aborted: %s — epoch "
+            "bumped to %d, task requeued for a fresh gang", g.gang_id,
+            g.epoch, g.key[0], g.key[1], reason, bulk.gang_epoch)
+        if g.key in bulk.done or g.key[0] in bulk.blacklisted_jobs:
+            return
+        if strike:
+            if self._count_strike_locked(bulk, g.key,
+                                         error or reason, recs):
+                # a blacklist can complete the bulk, and this abort
+                # may have arrived on a non-RPC path (heartbeat
+                # preemption, stale scan) that runs no finish check of
+                # its own — without this, a bulk whose LAST task
+                # blacklisted here would hang unfinished forever
+                self._maybe_finish_bulk(bulk)
+            return
+        # strike-free revocation, bounded by the transient cap so a
+        # gang that can never form/agree still terminates the bulk
+        if self._count_transient_locked(bulk, g.key, recs):
+            _M_TRANSIENT.inc()
+            _M_REVOCATIONS.inc()
+            _M_TASK_RETRIES.inc()
+            bulk.q_push(g.key, front=True)
+            return
+        if self._count_strike_locked(
+                bulk, g.key,
+                f"gang aborts exhausted the transient cap ({reason})",
+                recs):
+            self._maybe_finish_bulk(bulk)
+
+    # shared escalation counters (one policy for RPC failures, timeout
+    # revocations, and gang aborts — the journal record shapes and
+    # caps must never drift between those paths)
 
     @staticmethod
     def _count_transient_locked(bulk: _BulkJob, key: Tuple[int, int],
@@ -1136,6 +1508,123 @@ class Master:
         bulk.q_push(key, front=True)
         _M_TASK_RETRIES.inc()
         return False
+
+    def _gang_for_req_locked(self, bulk: _BulkJob, req: dict,
+                             rpc_name: str):
+        """Resolve a gang RPC's (gang_id, epoch) fence: the live gang,
+        or None (counted NACK) when the gang is gone or the epoch is
+        stale.  Caller holds self._lock."""
+        gid = req.get("gang_id")
+        g = bulk.gangs.get(gid) if gid is not None else None
+        if g is None or int(req.get("epoch", -1)) != g.epoch:
+            _gang.count_stale_nack(rpc_name)
+            return None
+        return g
+
+    def _fold_gang_shards_locked(self, g: _Gang, req: dict) -> None:
+        """Master-side shard commit fold (sharded gangs): the writer's
+        FinishedWork carries the per-member shard digests it assembled
+        the output from plus the collective total; verify that the
+        shards sum to the total and that every member whose ack already
+        landed reported the SAME shard digest the writer assembled.
+        The gang itself already refused to commit on disagreement
+        (member 0's pre-save check), so a mismatch here means a
+        reporting-path bug — counted and logged loudly, never a strike
+        against the (already committed, already verified) task.  Caller
+        holds self._lock."""
+        result = "ok"
+        try:
+            sds = [int(x) & 0xFFFFFFFF
+                   for x in (req.get("shard_digests") or ())]
+        except (TypeError, ValueError):
+            sds = []
+        total = req.get("digest")
+        if len(sds) != len(g.members) or total is None:
+            result = "partial"
+        elif sum(sds) & 0xFFFFFFFF != int(total) & 0xFFFFFFFF:
+            result = "mismatch"
+        else:
+            for rank, d in g.shard_digests.items():
+                if 0 <= rank < len(sds) and sds[rank] != d:
+                    result = "mismatch"
+                    break
+        if result != "ok":
+            _mlog.warning(
+                "gang %d epoch %d: shard commit fold %s (writer "
+                "digests %s, total %s, acked %s)", g.gang_id, g.epoch,
+                result, sds, total, dict(g.shard_digests))
+        _gang.count_shard_fold(result)
+
+    def _rpc_gang_member_done(self, req: dict) -> dict:
+        """A non-coordinator member finished its (non-writing) part of
+        the gang program: record the ack and release its slot in the
+        worker's held-count.  Member 0 completes via FinishedWork —
+        the gang's single completion report."""
+        with self._lock:
+            self._touch_worker(req.get("worker_id"))
+            bulk = self._bulk
+            if bulk is None or bulk.bulk_id != req.get("bulk_id"):
+                return {"ok": False}
+            gid = req.get("gang_id")
+            if gid in bulk.gang_retired \
+                    and int(req.get("epoch", -1)) \
+                    == bulk.gang_retired[gid]:
+                # the writer already committed this gang's task: the
+                # surviving member's ack is the healthy tail, not
+                # stale fence traffic
+                return {"ok": True}
+            g = self._gang_for_req_locked(bulk, req, "GangMemberDone")
+            if g is None:
+                return {"ok": False, "gang_stale": True}
+            wid = req.get("worker_id")
+            if wid not in g.members or wid == g.members[0]:
+                _gang.count_stale_nack("GangMemberDone")
+                return {"ok": False, "gang_stale": True}
+            if wid not in g.acks:
+                g.acks.add(wid)
+                self._dec_held(bulk, wid)
+            # sharded members carry their shard digest on the ack — the
+            # ack path extended to carry shard results; the commit fold
+            # verifies them against the writer's assembled view
+            if req.get("shard_digest") is not None:
+                try:
+                    g.shard_digests[g.members.index(wid)] = \
+                        int(req["shard_digest"]) & 0xFFFFFFFF
+                except (TypeError, ValueError):
+                    pass
+            return {"ok": True}
+
+    def _rpc_gang_failed(self, req: dict) -> dict:
+        """A member reported its gang run failed (rendezvous timeout,
+        collective error, runner loss, evaluate error): abort the gang
+        — epoch bump, strike-free requeue unless the member classified
+        the failure deterministic."""
+        recs: List[dict] = []
+        try:
+            with self._lock:
+                self._touch_worker(req.get("worker_id"))
+                bulk = self._bulk
+                if bulk is None or bulk.bulk_id != req.get("bulk_id"):
+                    return {"ok": False}
+                g = self._gang_for_req_locked(bulk, req, "GangFailed")
+                if g is None:
+                    return {"ok": False, "gang_stale": True}
+                stage = str(req.get("stage") or "member")
+                _mlog.warning(
+                    "gang %d epoch %d: member (worker %s) failed at "
+                    "%s: %s", g.gang_id, g.epoch,
+                    req.get("worker_id"), stage, req.get("error", ""))
+                self._abort_gang_locked(
+                    bulk, g, f"member_failed:{stage}", recs,
+                    strike=not req.get("transient", True),
+                    error=str(req.get("error", "")))
+                self._maybe_finish_bulk(bulk)
+                finished_now = bulk.finished
+        finally:
+            self._journal_append(recs)
+        if finished_now:
+            self._clear_bulk_checkpoint(bulk.bulk_id)
+        return {"ok": True}
 
     def _rpc_started_work(self, req: dict) -> dict:
         """Worker signals that evaluation of a prefetched task begins now:
@@ -1205,7 +1694,7 @@ class Master:
         is durable before any item is acked, so the write-ahead
         contract holds for every item exactly as it does for the
         singleton path.  Per-item replies ride back positionally so the
-        worker can dispatch revocation outcomes per task."""
+        worker can dispatch revocation/gang-stale outcomes per task."""
         items = list(req.get("items") or ())
         recs: List[dict] = []
         replies: List[dict] = []
@@ -1257,6 +1746,33 @@ class Master:
             self._drain_master_spans_locked()
             self._intake_clock_locked(bulk, req)
             self._absorb_batch_locked(bulk, req.get("spans") or ())
+            if bulk.gang_hosts and req.get("gang_id") is not None:
+                # gang single-writer commit: only member 0 of the LIVE
+                # gang at the CURRENT epoch may complete the task —
+                # a completion from an aborted epoch (the gang
+                # re-formed underneath a slow writer) or from a
+                # non-coordinator member is NACKed, never applied, so
+                # the sink commit is exactly-once per task
+                g = self._gang_for_req_locked(bulk, req, "FinishedWork")
+                if g is None or req.get("worker_id") != g.members[0]:
+                    if g is not None:
+                        _gang.count_stale_nack("FinishedWork")
+                    return {"ok": False, "revoked": True,
+                            "gang_stale": True}, False, False, bulk
+                # accepted: retire the gang — survivors' late acks are
+                # acknowledged via the retired map, and their held
+                # slots release here
+                if req.get("shard_digests") is not None:
+                    self._fold_gang_shards_locked(g, req)
+                bulk.gangs.pop(g.gang_id, None)
+                bulk.gang_by_task.pop(g.key, None)
+                bulk.gang_retired[g.gang_id] = g.epoch
+                while len(bulk.gang_retired) > 64:
+                    bulk.gang_retired.pop(
+                        next(iter(bulk.gang_retired)))
+                for m in g.members[1:]:
+                    if m not in g.acks:
+                        self._dec_held(bulk, m)
             # a completion only counts if this worker still holds the
             # assignment WITH the same attempt id — revoked
             # (timed-out/reassigned) attempts are ignored, the in-process
@@ -1437,8 +1953,28 @@ class Master:
                 if bulk is not None else None
             bulk_id = bulk.bulk_id if bulk is not None else None
             mem_reports = len(self._mem_reports)
+            # the Gang panel (docs/robustness.md §Gang scheduling):
+            # live gangs with their epoch fence + the forming pool
+            gang_panel = None
+            if bulk is not None and bulk.gang_hosts:
+                gang_panel = {
+                    "gang_hosts": bulk.gang_hosts,
+                    "epoch": bulk.gang_epoch,
+                    "forming": sorted(bulk.gang_forming),
+                    "live": [{"gang_id": g.gang_id, "epoch": g.epoch,
+                              "job": g.key[0], "task": g.key[1],
+                              "members": list(g.members),
+                              "coordinator": g.coordinator,
+                              "age_s": round(now - g.formed_at, 3)}
+                             for g in bulk.gangs.values()],
+                    # per-gang straggler attribution (newest first):
+                    # slowest member, lag vs median arrival, and the
+                    # barrier/collective verdict — the skew panel
+                    # (docs/observability.md §Cross-host time)
+                    "skew": list(reversed(bulk.gang_skew_rows))}
         return {"role": "master", "workers": workers,
                 "bulk_id": bulk_id, "bulk": status,
+                "gang": gang_panel,
                 # the fencing epoch (docs/robustness.md §Durable
                 # control plane): fenced=True means a successor owns
                 # this db and every mutating RPC here is rejected
@@ -1704,12 +2240,18 @@ class Master:
             return
         dur = max(float(d.get("end") or 0.0)
                   - float(d.get("start") or 0.0), 0.0)
-        if name in ("task", "load", "evaluate", "save") \
-                or name.startswith("evaluate:"):
+        if name in ("task", "load", "evaluate", "save", "gang") \
+                or name.startswith("evaluate:") \
+                or name.startswith("gang."):
             st = bulk.span_stats.setdefault(name, [0, 0.0, 0.0])
             st[0] += 1
             st[1] += dur
             st[2] = max(st[2], dur)
+        # gang phase spans feed the per-(gang, epoch) barrier-skew fold
+        # and the straggler attribution rows (docs/observability.md
+        # §Cross-host time)
+        if name in ("gang.barrier", "gang.collective"):
+            self._fold_gang_phase_locked(bulk, name, d, dur)
         # roofline verdicts ride on the op spans (engine/evaluate.py
         # op.efficiency events); fold them into tiny aggregates so
         # stragglers answer "inefficient or overloaded" per op (the
@@ -1723,6 +2265,79 @@ class Master:
                 d.get("node"), d.get("span_id")))
             if len(bulk.slowest) > STRAGGLER_TOP_N:
                 heapq.heappop(bulk.slowest)
+
+    def _fold_gang_phase_locked(self, bulk: _BulkJob, name: str,
+                                d: dict, dur: float) -> None:
+        """One member's gang.barrier / gang.collective span into the
+        per-(gang_id, epoch) fold.  Barrier-entry stamps are corrected
+        with the shipping node's clock offset (when trustworthy) so
+        the max-min skew compares arrivals on ONE clock; once every
+        member reported, the skew histogram observes and an
+        attribution row names the slowest member.  Caller holds
+        self._lock."""
+        a = d.get("attrs") or {}
+        try:
+            gid, ep = int(a["gang"]), int(a["epoch"])
+            member, num = int(a["member"]), int(a["num"])
+        except (KeyError, TypeError, ValueError):
+            return
+        if num <= 0:
+            return
+        rec = bulk.gang_arrivals.get((gid, ep))
+        if rec is None:
+            rec = bulk.gang_arrivals[(gid, ep)] = {
+                "num": num, "job": a.get("job"), "task": a.get("task"),
+                "arrive": {}, "wait": {}, "collective": {}, "node": {},
+                "done": False}
+            # incomplete folds from gangs that aborted mid-report are
+            # garbage after the epoch bumps; bound the map
+            if len(bulk.gang_arrivals) > 4 * MAX_GANG_SKEW_ROWS:
+                for k in sorted(bulk.gang_arrivals)[
+                        :len(bulk.gang_arrivals) - 2 * MAX_GANG_SKEW_ROWS]:
+                    if not bulk.gang_arrivals[k]["done"]:
+                        del bulk.gang_arrivals[k]
+        if rec["done"]:
+            return
+        node = d.get("node")
+        rec["node"][member] = node
+        if name == "gang.barrier":
+            start = float(d.get("start") or 0.0)
+            est = bulk.clock_offsets.get(node) \
+                or self._clock_offsets.get(node)
+            if _clocksync.should_rebase(est):
+                start += float(est["offset"])
+            rec["arrive"][member] = start
+            rec["wait"][member] = dur
+        else:
+            rec["collective"][member] = dur
+        if len(rec["arrive"]) < num or len(rec["collective"]) < num:
+            return
+        rec["done"] = True
+        arrivals = sorted(rec["arrive"].items(), key=lambda kv: kv[1])
+        skew = arrivals[-1][1] - arrivals[0][1]
+        _gang.observe_barrier_skew(skew)
+        vals = [t for _, t in arrivals]
+        median = vals[len(vals) // 2] if len(vals) % 2 \
+            else (vals[len(vals) // 2 - 1] + vals[len(vals) // 2]) / 2.0
+        slow_member, slow_t = arrivals[-1]
+        coll_max = max(rec["collective"].values())
+        row = {
+            "gang": gid, "epoch": ep,
+            "job": rec["job"], "task": rec["task"],
+            "skew_s": round(skew, 4),
+            "slowest": rec["node"].get(slow_member),
+            "member": slow_member,
+            "lag_s": round(slow_t - median, 4),
+            # the gang step's binding cost: time donated to the last
+            # arrival (the skew) vs the post-arrival reduction itself
+            "bound": "barrier" if skew >= coll_max else "collective",
+            "barrier_wait_max_s": round(max(rec["wait"].values()), 4),
+            "collective_max_s": round(coll_max, 4),
+        }
+        bulk.gang_skew_rows.append(row)
+        if len(bulk.gang_skew_rows) > MAX_GANG_SKEW_ROWS:
+            del bulk.gang_skew_rows[:len(bulk.gang_skew_rows)
+                                    - MAX_GANG_SKEW_ROWS]
 
     def _drain_master_spans_locked(self) -> None:
         """Move the master's own completed spans (admission, assigns,
@@ -1763,6 +2378,11 @@ class Master:
         out = {"per_stage": per, "slowest_tasks": slow,
                "spans": len(bulk.spans),
                "spans_dropped": bulk.span_drops}
+        if bulk.gang_skew_rows:
+            # per-gang straggler attribution (newest first): which host
+            # made each gang slow, by how much, and whether the step
+            # was barrier-bound or collective-bound
+            out["gangs"] = list(reversed(bulk.gang_skew_rows))
         return out
 
     def _absorb_batch_locked(self, bulk: _BulkJob, spans) -> None:
@@ -1945,6 +2565,9 @@ class Master:
             "job_ntasks": {j: len(ts) for j, ts in bulk.job_tasks.items()},
             "job_output_rows": dict(bulk.job_output_rows),
             "sticky": bulk.sticky,
+            "gang_hosts": bulk.gang_hosts,
+            "gang_sharded": bulk.gang_sharded,
+            "gang_halo": bulk.gang_halo,
             "token": bulk.admission_token,
         }
 
@@ -2014,6 +2637,11 @@ class Master:
                 "committed_jobs": sorted(bulk.committed_jobs),
                 "error": bulk.error,
                 "token": bulk.admission_token,
+                # the gang fence's high-water mark: a successor must
+                # mint strictly higher epochs than any this master
+                # handed out (the journal's gang records cover the
+                # checkpoint window on top of this)
+                "gang_epoch": bulk.gang_epoch,
             }
             # cut INSIDE the state lock: a mutation not yet in this
             # snapshot can only be journaled after its (post-snapshot)
@@ -2142,6 +2770,17 @@ class Master:
                     bulk.error = str(r["error"])
             elif t == "commit":
                 bulk.committed_jobs.add(int(r["j"]))
+            elif t == "gang":
+                bulk.next_gang_id = max(bulk.next_gang_id,
+                                        int(r.get("g", 0)) + 1)
+        # gang-in-flight records restore the epoch fence's high-water
+        # mark (journal.gang_epoch_high_water — one fold shared with
+        # tooling): a successor's first formation mints a strictly
+        # higher epoch, so a pre-failover gang's late completion can
+        # never be confused with a live one's (no double-commit
+        # across the failover)
+        bulk.gang_epoch = max(bulk.gang_epoch,
+                              _journal.gang_epoch_high_water(records))
         return applied
 
     def _drop_recovery_source(self, g: Optional[int]) -> None:
@@ -2187,6 +2826,13 @@ class Master:
             checkpoint_frequency=state["checkpoint_frequency"],
             # pre-sticky checkpoints default off (missing key)
             sticky=bool(state.get("sticky", False)),
+            # pre-gang checkpoints default to independent pulls
+            gang_hosts=int(state.get("gang_hosts", 0) or 0),
+            # a failed-over master must keep the SAME evaluation mode
+            # the bulk started with (pre-sharding checkpoints ran
+            # replicated)
+            gang_sharded=bool(state.get("gang_sharded", False)),
+            gang_halo=bool(state.get("gang_halo", True)),
             admission_token=str(state.get("token", "") or ""),
             # pre-crash spans are gone with the old process; post-
             # recovery assignments still assemble under one fresh trace
@@ -2223,6 +2869,9 @@ class Master:
                 bulk.blacklisted_jobs = set(prog["blacklisted_jobs"])
                 bulk.committed_jobs = set(prog["committed_jobs"])
                 bulk.error = prog.get("error", "")
+                bulk.gang_epoch = max(
+                    bulk.gang_epoch,
+                    int(prog.get("gang_epoch", 0) or 0))
         except Exception:  # noqa: BLE001
             # a corrupt progress file costs the snapshot, not the bulk:
             # the journal replay below still restores every record
@@ -2235,6 +2884,8 @@ class Master:
         # acknowledged after the last checkpoint — the records a plain
         # checkpoint-window restart would lose and re-execute
         applied = self._apply_journal_records(bulk, records)
+        if bulk.gang_hosts:
+            _gang.set_epoch(bulk.gang_epoch)
         if records:
             _mlog.info(
                 "journal replay: %d records across %d segments "
@@ -2428,7 +3079,8 @@ class Master:
                             "worker %d stale (%.1fs since heartbeat): "
                             "deactivating and requeueing its tasks",
                             w.worker_id, now - w.last_seen)
-                        self._requeue_worker_tasks(w.worker_id)
+                        self._requeue_worker_tasks(w.worker_id,
+                                                   recs=recs)
                 bulk = self._bulk
                 if bulk is not None and not bulk.finished:
                     # per-task timeout
@@ -2436,6 +3088,18 @@ class Master:
                         for key, (wid, t0, _a, started, _ed) in \
                                 list(bulk.outstanding.items()):
                             if now - t0 > bulk.task_timeout:
+                                gid = bulk.gang_by_task.get(key)
+                                if gid is not None:
+                                    # a timed-out gang is a lost/hung
+                                    # member set: abort the whole gang
+                                    # (epoch bump + strike-free requeue
+                                    # for a fresh gang), not a per-
+                                    # worker revocation
+                                    g = bulk.gangs.get(gid)
+                                    if g is not None:
+                                        self._abort_gang_locked(
+                                            bulk, g, "timeout", recs)
+                                    continue
                                 self._unassign(bulk, key)
                                 _M_REVOCATIONS.inc()
                                 _mlog.warning(
@@ -2461,6 +3125,33 @@ class Master:
                             bulk.mark_finished()
                     else:
                         self._no_worker_since = now
+                        # a gang bulk on a fleet whose live workers are
+                        # ALL gang-incapable (registered with no gang
+                        # address — SCANNER_TPU_GANG=0 / [gang]
+                        # enabled=false) would otherwise wait forever:
+                        # every pull answers "wait" and no formation
+                        # can ever happen.  Fail it loudly on the same
+                        # clock a worker-less bulk gets.
+                        if bulk.gang_hosts and not bulk.finished \
+                                and (bulk.q_has_work()
+                                     or bulk.outstanding):
+                            capable = any(
+                                w.active and w.gang_address
+                                for w in self._workers.values())
+                            if capable:
+                                bulk.gang_incapable_since = 0.0
+                            elif not bulk.gang_incapable_since:
+                                bulk.gang_incapable_since = now
+                            elif now - bulk.gang_incapable_since \
+                                    > self.no_workers_timeout:
+                                bulk.error = (
+                                    f"gang_hosts={bulk.gang_hosts} "
+                                    "but no gang-capable worker "
+                                    "joined within "
+                                    f"{self.no_workers_timeout}s "
+                                    "(fleet running with gang "
+                                    "scheduling disabled?)")
+                                bulk.mark_finished()
                 if bulk is not None and bulk.finished:
                     finished_bulk_id = bulk.bulk_id
                 if self.enable_watchdog and \
@@ -2484,10 +3175,21 @@ class Master:
                     # never kill the liveness scan
                     _mlog.exception("remediation tick failed")
 
-    def _requeue_worker_tasks(self, wid: int) -> None:
+    def _requeue_worker_tasks(self, wid: int,
+                              recs: Optional[List[dict]] = None) -> None:
         bulk = self._bulk
         if bulk is None or bulk.finished:
             return
+        # a dead/departing worker takes its gang memberships with it:
+        # abort those gangs first (epoch bump + strike-free requeue for
+        # a fresh gang on the survivors) — the dead worker may be a
+        # NON-coordinator member, invisible to the outstanding map
+        if recs is None:
+            recs = []
+        for g in list(bulk.gangs.values()):
+            if wid in g.members:
+                self._abort_gang_locked(bulk, g, "member_lost", recs)
+        bulk.gang_forming.pop(wid, None)
         for key, (owner, _t0, _a, _s, _ed) in list(bulk.outstanding.items()):
             if owner == wid:
                 self._unassign(bulk, key)
@@ -2562,6 +3264,7 @@ class _ShardLink:
         self.worker_id: Optional[int] = None
         self.gen = _journal.GenerationLatch()
         self.hb_reply: dict = {}
+        self.hb_reply_at = 0.0
         self.hb_misses = 0
 
     def redial(self, address: Optional[str] = None) -> None:
@@ -2682,8 +3385,10 @@ class Worker:
     `evaluate.resolve_device`, so asking for a card without one raises.
     `compilation_cache_dir` is accepted for the JAX package's signature
     and ignored: the kernel libraries are built once into
-    scanner_tpu_torch/_build/.  `coordinator` (joining a multi-process
-    runtime) is ROADMAP A.7 and raises NotImplementedError.
+    scanner_tpu_torch/_build/.  `coordinator` (joining a process group
+    for the worker's lifetime) is ROADMAP A.7b and raises
+    NotImplementedError; a gang bulk's members join a process group of
+    their own per gang epoch (engine/gang.py).
     """
 
     def __init__(self, master_address: str, db_path: str, port: int = 0,
@@ -2702,11 +3407,17 @@ class Worker:
         del compilation_cache_dir  # see the class docstring
         if coordinator is not None:
             raise NotImplementedError(
-                "Worker(coordinator=) joins a multi-process runtime, "
-                "which waits for ROADMAP A.7 (multi-GPU and gangs)")
+                "Worker(coordinator=) joins a process group for the "
+                "worker's lifetime, which only in-program sharding "
+                "uses: ROADMAP A.7b (in-program dp/sp/tp)")
         # resolved before anything starts: a worker asked for a card
         # that is not there raises here, with no server bound
         self.device = resolve_device(device)
+        # gang member runners re-derive the job from these
+        # (engine/gang.py: one child process per gang epoch, on this
+        # worker's device)
+        self._db_path = db_path
+        self._storage_type = storage_type
         self.db = Database(make_storage(storage_type, db_path=db_path))
         self.profiler = Profiler(node="worker")
         # this worker's span sink: stage/op spans land here and ship to
@@ -2792,8 +3503,22 @@ class Worker:
         # pass the pod/host DNS name
         self.advertise_address = \
             f"{advertise_host or 'localhost'}:{self.port}"
+        # the port this worker's gang runner would serve the gang's
+        # TCPStore at if elected member 0: reserved by a
+        # bind-and-release probe (the runner child binds it for real),
+        # advertised at registration so the master can mint rendezvous
+        # roles.  Empty when gang mode is disabled.
+        self._gang_address = ""
+        if _gang.enabled():
+            import socket as _socket
+            with _socket.socket() as _s:
+                _s.bind(("0.0.0.0", 0))
+                gport = _s.getsockname()[1]
+            self._gang_address = \
+                f"{advertise_host or 'localhost'}:{gport}"
         reg = self.master.call("RegisterWorker",
-                               address=self.advertise_address)
+                               address=self.advertise_address,
+                               gang_address=self._gang_address)
         if reg.get("worker_id") is None:
             # a FENCED (superseded) master answers an error reply:
             # fail startup loudly instead of KeyError-ing — this
@@ -2851,10 +3576,19 @@ class Worker:
         self._bulk_key: Optional[Tuple[Optional[int], int]] = None
         self.pipeline = WorkerPipeline(self.executor, self.device,
                                        pipeline_instances)
+        # gang mode (PerfParams.gang_hosts on the active bulk): the
+        # raw spec blob travels to member runner children verbatim
+        self._gang_hosts = 0
+        self._spec_raw: Optional[bytes] = None
+        self._task_timeout = 0.0
         self._posted_profiles: set = set()
         # heartbeat runs on its own thread so a long task never makes the
-        # master think this worker died (stale-worker scan)
+        # master think this worker died (stale-worker scan).  The
+        # receive timestamp lets gang liveness judgments require a
+        # beat FRESHER than the gang's formation — a stale reply must
+        # read as "unknown", never as "aborted".
         self._hb_reply: dict = {}
+        self._hb_reply_at = 0.0
         # clock-offset estimator vs the master (util/clocksync.py):
         # fed by the four-timestamp exchange riding every heartbeat;
         # the converged estimate is advertised on the next beat and
@@ -2952,6 +3686,7 @@ class Worker:
                         reg = self.master.try_call(
                             "RegisterWorker",
                             address=self.advertise_address,
+                            gang_address=self._gang_address,
                             timeout=PING_TIMEOUT)
                         # a FENCED master answers an error reply with
                         # no worker_id: stay on the old id and keep
@@ -2960,6 +3695,7 @@ class Worker:
                             self.worker_id = reg["worker_id"]
                 else:
                     self._hb_reply = hb
+                    self._hb_reply_at = time.time()
             time.sleep(PING_INTERVAL)
 
     # -- sharded control plane (engine/shardmap.py) --------------------
@@ -2984,6 +3720,7 @@ class Worker:
             if link.worker_id is None:
                 reg = link.client.try_call(
                     "RegisterWorker", address=self.advertise_address,
+                    gang_address=self._gang_address,
                     timeout=PING_TIMEOUT)
                 if reg and reg.get("worker_id") is not None:
                     link.gen.observe(reg)
@@ -3013,7 +3750,7 @@ class Worker:
     def _beat_shards(self) -> None:
         """One heartbeat pass across every shard link.  Exactly one
         full beat per period — to the shard owning our active work
-        (clock exchange and firing alerts ride it) — and
+        (clock exchange, firing alerts, gang liveness ride it) — and
         slim liveness-only beats to the rest; the coalescing counter
         on the master records each slim beat as a saved full payload."""
         try:
@@ -3062,6 +3799,7 @@ class Worker:
                     reg = link.client.try_call(
                         "RegisterWorker",
                         address=self.advertise_address,
+                        gang_address=self._gang_address,
                         timeout=PING_TIMEOUT)
                     if reg and reg.get("worker_id") is not None:
                         link.worker_id = reg["worker_id"]
@@ -3069,8 +3807,10 @@ class Worker:
                             self.worker_id = link.worker_id
             else:
                 link.hb_reply = hb
+                link.hb_reply_at = time.time()
                 if link.shard_id == active:
                     self._hb_reply = hb
+                    self._hb_reply_at = link.hb_reply_at
         self._map_beat += 1
         smap = self._map.get()
         if self._map_beat % 5 == 0 or (
@@ -3080,7 +3820,7 @@ class Worker:
 
     def _bind_link(self, link: _ShardLink) -> None:
         """Point the legacy single-master fields at one shard's link;
-        the pull/report plumbing (_pull_loop, span/profile
+        the pull/report plumbing (_pull_loop, _gang_loop, span/profile
         ships) all speak through self.master / self.worker_id and so
         work unchanged against whichever shard owns the active bulk."""
         self._active_shard = link.shard_id
@@ -3089,6 +3829,7 @@ class Worker:
         self.worker_id = link.worker_id
         self._gen = link.gen
         self._hb_reply = link.hb_reply
+        self._hb_reply_at = link.hb_reply_at
 
     def _switch_active_link(self) -> None:
         """Between bulks: re-point the pull plumbing at whichever
@@ -3219,6 +3960,11 @@ class Worker:
             "draining": self._draining.is_set(),
             "preempting": self._preempting,
             "bulk_id": getattr(self, "_bulk_id", None),
+            # gang mode (engine/gang.py): the active bulk's requested
+            # gang size and the coordinator address this worker
+            # advertises for member-0 election
+            "gang_hosts": getattr(self, "_gang_hosts", 0),
+            "gang_address": getattr(self, "_gang_address", ""),
             "pipeline_instances": ex.pipeline_instances if ex else None,
             "num_load_workers": ex.num_load_workers if ex else None,
             "num_save_workers": ex.num_save_workers if ex else None,
@@ -3252,7 +3998,12 @@ class Worker:
                 continue
             try:
                 self._ensure_bulk(bulk_id)
-                self._pull_loop(bulk_id)
+                if self._gang_hosts > 0 and _gang.enabled():
+                    # gang mode: the bulk's tasks are co-scheduled
+                    # member runs, not independent pipeline pulls
+                    self._gang_loop(bulk_id)
+                else:
+                    self._pull_loop(bulk_id)
             except Exception:  # noqa: BLE001
                 # a pipeline-level failure (e.g. evaluator construction)
                 # must not kill this thread while the heartbeat keeps the
@@ -3315,11 +4066,17 @@ class Worker:
     def _ensure_bulk(self, bulk_id: int) -> None:
         if self._bulk_key == (self._active_shard, bulk_id):
             return
-        spec = cloudpickle.loads(
-            self.master.call("GetJob", bulk_id=bulk_id)["spec"])
+        raw = self.master.call("GetJob", bulk_id=bulk_id)["spec"]
+        spec = cloudpickle.loads(raw)
         # master created tables after our metadata cache was filled
         self.db.refresh_meta()
         perf = spec["perf"]
+        # gang mode latch + the verbatim spec blob member runner
+        # children re-derive the job from (engine/gang.py)
+        self._spec_raw = raw
+        self._gang_hosts = int(getattr(perf, "gang_hosts", 0) or 0)
+        self._task_timeout = float(getattr(perf, "task_timeout", 0.0)
+                                   or 0.0)
         # fresh profiler per bulk so PostProfile ships only this job's spans
         self.profiler = Profiler(
             node=f"worker{self.worker_id}",
@@ -3458,6 +4215,158 @@ class Worker:
         self.pipeline.run(source, on_start=on_start, on_done=on_done,
                           on_eval_done=on_eval_done,
                           on_task_error=on_task_error)
+
+    # -- gang member path (engine/gang.py) ---------------------------------
+
+    def _next_gang(self, bulk_id: int):
+        """One gang-mode NextWork pull: a role reply dict, "wait", or
+        None (bulk over / draining).  A reply stamped by a stale master
+        generation is NACKed exactly like an ordinary assignment — a
+        superseded master must not be able to convene a gang."""
+        if self._draining.is_set():
+            return None
+        if self._hb_reply.get("active_bulk") != bulk_id:
+            return None
+        reply = self.master.try_call("NextWork",
+                                     worker_id=self.worker_id,
+                                     bulk_id=bulk_id, window=0)
+        if reply is not None and not self._gen.observe(reply):
+            return "wait"
+        if reply is None or reply.get("status") in (None, "none",
+                                                    "done"):
+            return None
+        if reply["status"] == "wait":
+            return "wait"
+        return reply
+
+    def _gang_loop(self, bulk_id: int) -> None:
+        """Drive gang member runs from the master's formation pool:
+        pull a role, run the member to completion in its own child
+        process, report, repeat.  One member at a time per worker —
+        a gang IS this node's unit of work."""
+        while not self._shutdown.is_set():
+            nxt = self._next_gang(bulk_id)
+            if nxt is None:
+                return
+            if nxt == "wait":
+                time.sleep(PING_INTERVAL / 4)
+                continue
+            try:
+                self._run_gang_member(bulk_id, nxt)
+            except Exception:  # noqa: BLE001 — a reporting failure
+                # must not kill the loop while the heartbeat keeps
+                # this worker looking alive
+                _wlog.exception("worker %d: gang member run failed",
+                                self.worker_id)
+                time.sleep(PING_INTERVAL)
+
+    def _run_gang_member(self, bulk_id: int, role: dict) -> None:
+        gid, epoch = role["gang_id"], role["epoch"]
+        pid = int(role["process_id"])
+        task_timeout = float(role.get("task_timeout")
+                             or self._task_timeout or 0.0)
+        request = {
+            "db_path": self._db_path,
+            "storage_type": self._storage_type,
+            "spec": self._spec_raw, "bulk_id": bulk_id,
+            "job_idx": role["job_idx"], "task_idx": role["task_idx"],
+            "attempt": role.get("attempt", 0),
+            "gang_id": gid, "epoch": epoch,
+            "process_id": pid,
+            "num_processes": int(role["num_processes"]),
+            "coordinator": role["coordinator"],
+            "init_timeout": _gang.init_timeout_s(),
+            "task_timeout": task_timeout,
+            # evaluation mode is the MASTER's call, read off the role
+            # reply verbatim — never this worker's local config
+            "sharded": bool(role.get("sharded")),
+            "halo": bool(role.get("halo", True)),
+            "traceparent": role.get("traceparent"),
+            "node": f"worker{self.worker_id}",
+            # the member evaluates on this worker's own device
+            "device": str(self.device),
+        }
+        _wlog.info(
+            "worker %d: gang %d epoch %d — member %d/%d for task "
+            "(%d,%d), coordinator %s", self.worker_id, gid, epoch, pid,
+            request["num_processes"], role["job_idx"],
+            role["task_idx"], role["coordinator"])
+        t_form = time.time()
+
+        def gang_alive() -> bool:
+            # heartbeat-fed gang liveness: only a beat provably SENT
+            # after the formation may testify — its receive time must
+            # clear t_form by the beat's own deadline (PING_TIMEOUT),
+            # so a reply that was in flight when the gang formed (or a
+            # stale reply held across a master hiccup) reads as
+            # "unknown" and never reaps a healthy runner.  A fresh
+            # beat whose per-worker gang list lacks this gang means it
+            # was aborted underneath us — reap now instead of blocking
+            # in a dead collective until the member timeout.
+            if self._hb_reply_at <= t_form + PING_TIMEOUT:
+                return True
+            hb = self._hb_reply
+            if "gangs" not in hb:
+                return True  # legacy master: no liveness feed
+            return gid in (hb.get("gangs") or ())
+
+        res = _gang.spawn_member(
+            request, timeout=_gang.member_timeout_s(task_timeout),
+            alive=gang_alive)
+        # the member child's phase seconds fold into THIS process's
+        # metrics registry (the child's registry is never scraped);
+        # sharded data-plane stats (shard rows, decode rows, halo
+        # bytes) fold the same way
+        _gang.count_phases(res.get("phases"), res.get("role"))
+        _gang.count_shard_stats(res.get("shard"), res.get("role"))
+        # the child's kernel launches were made for this worker's task
+        _gang.fold_kernel_counts(res.get("cuda_ops"))
+        # the member's spans (task under the gang root, stages, ops)
+        # came back in the result file — ship them so the gang's whole
+        # story assembles under one trace on the master.  The batch
+        # carries this worker's clock estimate: the child shares this
+        # host's clock, so its spans rebase with the same offset.
+        spans = list(res.get("spans") or ()) + self.tracer.drain_export()
+        if spans:
+            self.master.try_call("ShipSpans", bulk_id=bulk_id,
+                                 worker_id=self.worker_id, spans=spans,
+                                 clock=self._clock.estimate())
+        base = dict(bulk_id=bulk_id, worker_id=self.worker_id,
+                    job_idx=role["job_idx"],
+                    task_idx=role["task_idx"],
+                    attempt=role.get("attempt", 0),
+                    gang_id=gid, epoch=epoch)
+        if res.get("ok"):
+            # single-writer completion: member 0 carries the gang's
+            # FinishedWork — with the collective digest total and the
+            # per-member shard digests it assembled from (sharded runs)
+            # for the master's shard commit fold; everyone else acks,
+            # the ack extended to carry its own shard digest
+            if pid == 0:
+                reply = self.master.try_call(
+                    "FinishedWork", **base,
+                    digest=res.get("digest"),
+                    shard_digests=res.get("shard_digests"))
+            else:
+                reply = self.master.try_call(
+                    "GangMemberDone", **base,
+                    shard_digest=res.get("shard_digest"))
+            if reply is not None and self._gen.observe(reply) \
+                    and reply.get("gang_stale"):
+                _wlog.warning(
+                    "worker %d: gang %d epoch %d completion NACKed as "
+                    "stale — the gang re-formed underneath this "
+                    "member", self.worker_id, gid, epoch)
+        else:
+            _wlog.warning(
+                "worker %d: gang %d epoch %d member %d failed at %s: "
+                "%s", self.worker_id, gid, epoch, pid,
+                res.get("stage"), res.get("error"))
+            self.master.try_call(
+                "GangFailed", **base,
+                stage=res.get("stage", "member"),
+                transient=bool(res.get("transient", True)),
+                error=str(res.get("error", "")))
 
     def wait_for_shutdown(self) -> None:
         while not self._shutdown.is_set():

@@ -11,7 +11,9 @@ here has three parts side by side:
     hold against the JAX package and `chip_smoke.py` holds the kernel
     against on the card;
   * a launch counter, a plain integer the wrapper adds one to where it
-    launches the kernel and nowhere else.
+    launches the kernel and nowhere else.  A gang member runs in a child
+    process of its worker; the worker adds the child's counters to its
+    own when the member returns (`fold_counts`, engine/gang.py).
 
 Kernel sources live in `scanner_tpu_torch/csrc/`, are compiled with nvcc
 for sm_90a into a shared library with a plain C interface at first use
@@ -85,6 +87,27 @@ def capture_launches():
         yield tally
     finally:
         _capture.tally = prev
+
+
+def counts() -> dict:
+    """This process's launch counters by name."""
+    return {"histogram_launches": histogram_launches,
+            "histogram_ids_launches": histogram_ids_launches,
+            "histogram_replay_launches": histogram_replay_launches}
+
+
+def fold_counts(other: dict) -> None:
+    """Add another process's launch counters (`counts()` of a gang
+    member child, engine/gang.py) to this process's: the launches its
+    kernels made for this process's work."""
+    global histogram_launches, histogram_ids_launches, \
+        histogram_replay_launches
+    with _count_lock:
+        histogram_launches += int(other.get("histogram_launches", 0))
+        histogram_ids_launches += int(
+            other.get("histogram_ids_launches", 0))
+        histogram_replay_launches += int(
+            other.get("histogram_replay_launches", 0))
 
 
 def count_replay(tally) -> None:

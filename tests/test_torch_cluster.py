@@ -5,7 +5,8 @@ of the same clip.  Histogram and HistDiff rows must be the same bytes
 as the JAX cluster's and as the port's local Client run; a worker whose
 task fails (fault injection) still gives the same rows; an op that
 always fails is blacklisted after MAX_TASK_FAILURES strikes; a gang bulk
-is refused at admission; the worker's task path (WorkerPipeline) runs
+(gang_hosts=2) runs on two workers' member processes; the worker's task
+path (WorkerPipeline) runs
 from a local task list; the cluster forms of job_status, health,
 metrics and trace work; shutdown_cluster stops every server thread.
 Every server binds port 0."""
@@ -170,8 +171,31 @@ def test_always_failing_job_is_blacklisted(clusters):
 
 
 def test_gang_bulk_refused_at_admission(clusters):
-    with pytest.raises(st.JobException, match="A.7"):
-        _run(clusters["torch"], st, "config1", "gang", gang_hosts=2)
+    """A gang bulk is not refused at admission: with a second port
+    worker beside the first, config 1 with gang_hosts=2 runs on gangs of
+    two member processes, and its rows are the JAX cluster's bytes."""
+    tc = clusters["torch"]
+    perf = dict(work_packet_size=4, io_packet_size=20)
+    second = tservice.Worker(tc._master_address, db_path=clusters["tpath"],
+                             device="cpu")
+    try:
+        deadline = time.time() + 30
+        while tc.job_status()["num_workers"] < 2:
+            assert time.time() < deadline, "second worker never joined"
+            time.sleep(0.1)
+        tc.run(_graph(tc, st, "config1", "gang"),
+               st.PerfParams.manual(**perf, gang_hosts=2),
+               show_progress=False, cache_mode=st.CacheMode.Overwrite)
+    finally:
+        second.stop()
+    clusters["jax"].run(_graph(clusters["jax"], sj, "config1", "gang"),
+                        sj.PerfParams.manual(**perf), show_progress=False,
+                        cache_mode=sj.CacheMode.Overwrite)
+    s = tc.job_status()
+    assert s["finished"] and s["failed_jobs"] == [] \
+        and s["task_failures"] == 0
+    want = _stored(clusters["jax"]._db, "gang")
+    assert len(want) == N and _stored(tc._db, "gang") == want
 
 
 def test_worker_pipeline_from_a_local_source(clusters):

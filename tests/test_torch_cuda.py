@@ -7,7 +7,8 @@ Histogram rows (the kernel's id entry) exactly, and the model ops within
 the bounds of chip_smoke.py's [model_serve] (boxes within IoU 0.9 on 95 %
 of frames, cosine >= 0.99, mask IoU >= 0.9 on matched instances).  And
 a cluster job through a Worker(device="cuda:0") against a CPU worker's
-rows, byte for byte.  Marked `cuda`: they need an NVIDIA card with nvcc
+rows, and a two-member gang on the one card against a local run, byte
+for byte.  Marked `cuda`: they need an NVIDIA card with nvcc
 (sm_90a) and skip elsewhere — except the check that a worker asked for
 a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
@@ -562,3 +563,52 @@ def test_cluster_job_on_card_matches_cpu_cluster(card, tmp_path):
             w.stop()
             m.stop()
     assert len(rows["cpu"]) == 40 and rows["cuda:0"] == rows["cpu"]
+
+
+def test_gang_of_two_members_on_card_matches_local_run(card, tmp_path):
+    """A gang_hosts=2 Histogram bulk through an in-process master and
+    two Worker(device="cuda:0"): each member is a child process with
+    its own CUDA context on the one card, evaluates its row shard
+    through the kernel, and member 0 stores the same bytes as a local
+    run on the card."""
+    import numpy as np
+
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    rng = np.random.RandomState(4)
+    frames = rng.randint(0, 256, (40, 96, 128, 3)).astype(np.uint8)
+    db = str(tmp_path / "db")
+    Database(PosixStorage(db)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    local = st.Client(db_path=db, device="cuda:0")
+    src = local.io.Input([st.NamedStream(local, "frames")])
+    local.run(local.io.Output(local.ops.Histogram(frame=src),
+                              [st.NamedStream(local, "want")]),
+              st.PerfParams.manual(10, 20), show_progress=False)
+    desc = local._db.table_descriptor("want")
+    want = list(local._db.load_column("want", desc.columns[0].name))
+    local.stop()
+    m = Master(db_path=db)
+    ws = [Worker(f"localhost:{m.port}", db_path=db, device="cuda:0")
+          for _ in range(2)]
+    sc = st.Client(db_path=db, master=f"localhost:{m.port}")
+    try:
+        before = cuda_ops.histogram_launches
+        src = sc.io.Input([st.NamedStream(sc, "frames")])
+        sc.run(sc.io.Output(sc.ops.Histogram(frame=src),
+                            [st.NamedStream(sc, "gang")]),
+               st.PerfParams.manual(10, 20, gang_hosts=2),
+               show_progress=False)
+        # two tasks, each split 10 + 10 rows over the members: at least
+        # one launch per member per task, folded into this process
+        assert cuda_ops.histogram_launches - before >= 4
+        desc = sc._db.table_descriptor("gang")
+        got = list(sc._db.load_column("gang", desc.columns[0].name))
+    finally:
+        sc.stop()
+        for w in ws:
+            w.stop()
+        m.stop()
+    assert len(want) == 40 and got == want

@@ -366,10 +366,6 @@ unknown_key = 1
 
 PROPS = [n for n, v in vars(jconfig.Config).items()
          if isinstance(v, property)]
-# the [gang] keys: parsed by both, read by the JAX package only (the
-# port refuses gang bulks until ROADMAP A.7)
-GANG_PROPS = {"gang_enabled", "gang_init_timeout_s", "gang_form_timeout_s",
-              "gang_sharded", "gang_halo_exchange"}
 
 
 def test_default_config_dump_equal():
@@ -385,15 +381,50 @@ def test_config_parses_equal(tmp_path, text):
                     if text == "default" else ALL_SECTIONS)
     jc, tc = jconfig.Config(str(path)), tconfig.Config(str(path))
     assert tc.config == jc.config
-    assert set(PROPS) - GANG_PROPS == {
+    assert set(PROPS) == {
         n for n, v in vars(tconfig.Config).items()
         if isinstance(v, property)}
-    for name in set(PROPS) - GANG_PROPS:
+    for name in PROPS:
         assert getattr(tc, name) == getattr(jc, name), name
     if text == "all":
         assert tc.master_address == "head-node:6123"
         assert tc.remediation_autoscale_bounds == (2, 5)
         assert tc.frame_cache_mb == 512 and tc.control_shards == 3
+
+
+def test_gang_keys_applied_by_both(tmp_path, monkeypatch):
+    """The [gang] keys land in each package's engine/gang.py setters
+    through its client's config path, with the same values."""
+    from scanner_tpu.engine import client as jclient
+    from scanner_tpu.engine import gang as jgang
+    from scanner_tpu_torch.engine import client as tclient
+    from scanner_tpu_torch.engine import gang as tgang
+    for var in ("SCANNER_TPU_GANG", "SCANNER_TPU_GANG_INIT_TIMEOUT",
+                "SCANNER_TPU_GANG_FORM_TIMEOUT", "SCANNER_TPU_GANG_SHARDED",
+                "SCANNER_TPU_GANG_HALO", "SCANNER_TPU_FAULTS"):
+        monkeypatch.delenv(var, raising=False)
+    path = tmp_path / "cfg.toml"
+    path.write_text(ALL_SECTIONS[ALL_SECTIONS.index("[gang]"):
+                                 ALL_SECTIONS.index("[control]")])
+    getters = ("enabled", "init_timeout_s", "form_timeout_s",
+               "sharded_enabled", "halo_enabled")
+    saved = [(m, [getattr(m, g)() for g in getters])
+             for m in (jgang, tgang)]
+    try:
+        tclient._apply_config(tconfig.Config(str(path)))
+        jc = jclient.Client(db_path=str(tmp_path / "jdb"),
+                            config_path=str(path))
+        jc.stop()
+        want = [False, 12.0, 2.5, False, False]
+        assert [getattr(tgang, g)() for g in getters] == want
+        assert [getattr(jgang, g)() for g in getters] == want
+    finally:
+        for m, vals in saved:
+            m.set_enabled(vals[0])
+            m.set_init_timeout_s(vals[1])
+            m.set_form_timeout_s(vals[2])
+            m.set_sharded(vals[3])
+            m.set_halo(vals[4])
 
 
 def test_config_missing_file_raises(tmp_path):

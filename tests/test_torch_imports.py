@@ -1,7 +1,8 @@
 """The port stands alone: scanner_tpu_torch and chip_smoke.py import
 neither jax nor the JAX package (scanner_tpu), every relative import of
-the port resolves inside it, and asking for a card that is not there
-raises instead of carrying on on the CPU."""
+the port resolves inside it (the gang's parallel/ modules and its
+member child included), and asking for a card that is not there raises
+instead of carrying on on the CPU."""
 
 import ast
 import os
@@ -113,6 +114,53 @@ def test_cluster_modules_import_with_jax_blocked():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+GANG_MODULES = ["parallel.distributed", "parallel.mesh", "parallel.halo",
+                "engine.gang"]
+
+
+def test_gang_modules_and_member_child_run_with_jax_blocked(tmp_path):
+    """The gang's modules import with jax and the JAX package absent, and
+    so does the member child `python -m scanner_tpu_torch.engine.gang`:
+    run on a request whose rendezvous cannot complete, it reports the
+    failure in its result file and exits 3."""
+    import cloudpickle
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    req, res = str(tmp_path / "req.bin"), str(tmp_path / "res.bin")
+    with open(req, "wb") as fh:
+        fh.write(cloudpickle.dumps({
+            "process_id": 1, "num_processes": 2, "gang_id": 0, "epoch": 1,
+            "coordinator": f"127.0.0.1:{port}", "init_timeout": 1,
+            "device": "cpu"}))
+    code = ("import sys, runpy, importlib; sys.modules['jax'] = None; "
+            "sys.modules['scanner_tpu'] = None; "
+            + "; ".join(f"importlib.import_module('scanner_tpu_torch.{m}')"
+                        for m in GANG_MODULES)
+            + f"; sys.argv = ['gang', {req!r}, {res!r}]; "
+              "runpy.run_module('scanner_tpu_torch.engine.gang', "
+              "run_name='__main__')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 3, r.stderr
+    with open(res, "rb") as fh:
+        out = cloudpickle.loads(fh.read())
+    assert out["ok"] is False and out["stage"] == "rendezvous"
+
+
+def test_make_mesh_defaults_to_the_cards(monkeypatch):
+    """make_mesh lays out every CUDA card unless given devices; without
+    a card it raises rather than laying out the CPU."""
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(st.ScannerException, match="no CUDA card"):
+        make_mesh({"dp": 1})
+    assert make_mesh({"dp": 2}, devices=["cpu", "cpu"]).shape == \
+        {"dp": 2, "sp": 1, "tp": 1}
 
 
 def test_cuda_client_raises_without_card(tmp_path, monkeypatch):
