@@ -59,9 +59,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      device_trace config 1 at profiler_level=2: torch.profiler's capture
                   merged by Profile.write_trace must hold the histogram
                   kernel by name once per counted launch, each inside
-                  the host window and an evaluate:Histogram span; the
-                  card's busy share of that window (kernels, copies,
-                  fills);
+                  the host window and tied by the trace's correlation id
+                  to the runtime call that launched it, which must lie
+                  inside an evaluate:Histogram span; each kernel's start
+                  after its span's end, after its launch call and after
+                  its launch's first kernel, and the alignment anchor's
+                  duration; the card's busy share of that window
+                  (kernels, copies, fills);
      serial       config 1 under SCANNER_TPU_NO_PIPELINING=1: rows the
                   same bytes as the pipelined run's;
      worker_task  config 1 through a cluster worker's task path on
@@ -119,6 +123,25 @@ Phases, each printed on its own line; any failure exits non-zero:
                   1e-3 of impl="xla" (the plain ring), step time; the
                   kernel against its plain version on the q, k, v that
                   the first step's first temporal block gave it;
+  8a. train     every train loop of the port on the card at the shipped
+                  configurations and the reference's step counts
+                  (train_pose 300 with the one-rank "cuda" ring,
+                  train_detector 300 on rect and on face scenes,
+                  train_embedding 300, train_segmenter 400), each saving
+                  through TrainCheckpointer and exporting its .npz:
+                  finite losses, the last below the first, the flash
+                  kernel launched once per temporal block and pose step
+                  and held against its plain version on the q, k, v the
+                  first step gave it, then timed at that shape; steps/s
+                  and frames/s per loop, the save seconds, the card's
+                  idle share over one profiled step each.  Pose trained
+                  20 steps, saved, restored into a fresh model and Adam
+                  and trained 10 more, against an uninterrupted 30-step
+                  run (rel 1e-4, deterministic cuDNN).  PoseDetect on the
+                  pose checkpoint and ObjectDetect on the detector's
+                  .npz through Client(device="cuda") against the
+                  in-memory trained models, with the keypoint error and
+                  the recall beside the shipped and random weights';
   9. model_serve  ObjectDetect, FaceEmbedding and InstanceSegment (width
                   8, the shipped weights) over 128 stored 640 x 480
                   frames through Client(device="cuda"): frames/s of two
@@ -151,7 +174,9 @@ Phases, each printed on its own line; any failure exits non-zero:
                   replays (at least one) and both runs' frames/s.  One
                   more fused (b) job at profiler_level=2: its trace must
                   show the histogram kernel once per counted launch (the
-                  graph replays' launches), inside the chain's spans;
+                  graph replays' launches), each launched by a
+                  cudaGraphLaunch inside the chain's span (as in
+                  [device_trace]);
  11. ledgers      after configs 1, 2 and shot, and again after [golden]:
                   Client.memory_report()'s live and watermark bytes by
                   buffer kind beside torch.cuda.max_memory_allocated, and
@@ -171,7 +196,8 @@ Phases, each printed on its own line; any failure exits non-zero:
                   plain version and one library call (torch.bincount;
                   F.scaled_dot_product_attention in f32), by CUDA events
                   around wrapper calls, and the kernel's device time
-                  alone from torch.profiler; the flash kernel also at the
+                  alone from torch.profiler, per event, with the events
+                  per call beside it; the flash kernel also at the
                   train step's shape.  The histogram is also timed cold
                   (calls cycle over 8 distinct batches, past the L2), on
                   flat frames, at B = 8 and 32, and with every kernel a
@@ -201,15 +227,18 @@ histogram's `launches` counts config 1's run, [worker_task]'s,
 child process, are folded into this process's count by its worker), and
 the golden phase's card runs, fused and staged (a
 graph replay counts the launches the graph holds:
-cuda_ops.count_replay).
+cuda_ops.count_replay); the flash kernel's counts [pose_train]'s five
+steps and [train]'s 300 pose steps.
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -320,27 +349,34 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int, names) -> dict:
-    """Device milliseconds per call of each kernel whose name holds one
+    """Device milliseconds per event of each kernel whose name holds one
     of `names`, from torch.profiler over `iters` calls of fn() after a
-    warm-up: the sum of its self device time over the calls / iters.
-    Also "all kernels", every kernel, fill or copy the calls ran on the
-    card, "kernels per call", how many of those one call ran, and
-    "others", the names of those that match none of `names`.  A trace
-    that holds no device time for one of `names` is taken again, twice
-    at most: now and then a trace comes back with no device records at
-    all (seen on an H100)."""
+    warm-up: its summed self device time over the count of its events,
+    so a record the profiler drops does not read as a faster kernel.
+    Also "events per call" of each of `names`, "all kernels", the device
+    time per call of every kernel, fill or copy the calls ran, "kernels
+    per call", how many events of those one call ran, and "others", the
+    names of those that match none of `names`.  The trace is taken again,
+    twice at most, while one of `names` has fewer events than calls (now
+    and then a trace comes back with some device records, or all of them,
+    missing; seen on an H100), and the take with the most events of
+    `names` is read.  A name none of the takes holds reads None (not
+    measured), as does "all kernels" when no take holds a device record;
+    "empty takes" counts the takes without one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    best, empty = None, 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {n: 0.0 for n in names}
+        time_ms = {n: 0.0 for n in names}
+        events = {n: 0 for n in names}
         total = count = 0.0
         others = []
         for e in prof.key_averages():
@@ -350,16 +386,29 @@ def device_ms(fn, iters: int, names) -> dict:
             count += e.count / iters
             hit = [n for n in names if n in e.key]
             for n in hit:
-                out[n] += e.self_device_time_total / 1e3 / iters
+                time_ms[n] += e.self_device_time_total / 1e3
+                events[n] += e.count
             if not hit:
                 others.append(e.key)
-        if all(out.values()):
+        empty += not count
+        take = (time_ms, events, total, count, others)
+        if best is None or sum(events.values()) > sum(best[1].values()):
+            best = take
+        if all(events[n] >= iters for n in names):
             break
-    check(all(out.values()), f"the profiler trace holds no device time for "
-                             f"{[n for n, v in out.items() if not v]}")
-    out["all kernels"], out["kernels per call"] = total, count
+    time_ms, events, total, count, others = best
+    out = {n: time_ms[n] / events[n] if events[n] else None for n in names}
+    out["events per call"] = {n: events[n] / iters for n in names}
+    out["all kernels"] = total if count else None
+    out["kernels per call"] = count
     out["others"] = others
+    out["empty takes"] = empty
     return out
+
+
+def ratio(a, b):
+    """a / b, or None (not measured) when either is."""
+    return None if a is None or b is None else a / b
 
 
 def frame_batches(n: int, shape, seed: int, dev, flat: bool = False):
@@ -633,11 +682,12 @@ def check_attention_kernel(dev, seed: int, errs: dict) -> int:
     return len(cases) + 4
 
 
-def run_pose(client, st, out: str) -> float:
-    """PoseDetect(width=8, the shipped weights) over the "blob" table
-    into `out`; returns wall seconds."""
+def run_pose(client, st, out: str, **kw) -> float:
+    """PoseDetect(width=8; the shipped weights unless `kw` says other)
+    over the "blob" table into `out`; returns wall seconds."""
     poses = client.ops.PoseDetect(
-        frame=client.io.Input([st.NamedStream(client, "blob")]), width=8)
+        frame=client.io.Input([st.NamedStream(client, "blob")]), width=8,
+        **kw)
     t0 = time.time()
     client.run(client.io.Output(poses, [st.NamedStream(client, out)]),
                st.PerfParams.manual(64, 256), show_progress=False,
@@ -693,6 +743,31 @@ def pose_serve(st, work: str, seed: int, n: int = 512) -> dict:
                 flash_launches=launches[1])
 
 
+def flash_on_ring_inputs(q, k, v, dev, what: str, errs: dict):
+    """The flash kernel against its plain version on the q, k, v a train
+    step gave the ring, laid out as the one-rank kernel ring lays them
+    out: (B, T, H, D) -> (B * H, T, D), q pre-scaled, from an empty
+    carry, not causal.  Folds the errors into `errs`; returns the call's
+    arguments and its own errors."""
+    import torch
+    from scanner_tpu_torch.kernels import attention
+    from scanner_tpu_torch.kernels.attention import NEG_INF
+    B, T, H, D = q.shape
+
+    def rows(x, s=1.0):
+        return (x.float() * s).permute(0, 2, 1, 3).reshape(B * H, T, D)
+    args = [rows(q, D ** -0.5), rows(k), rows(v),
+            torch.full((B * H, T), NEG_INF, device=dev),
+            torch.zeros(B * H, T, device=dev),
+            torch.zeros(B * H, T, D, device=dev)]
+    own = {"m": 0.0, "l": 0.0, "out": 0.0, "f32_out": 0.0}
+    compare_flash(attention.flash_block_update(*args, 0, 0), args, 0, 0,
+                  False, what, own)
+    for name, err in own.items():
+        errs[name] = max(errs[name], err)
+    return args, own
+
+
 def pose_train(dev, seed: int, errs: dict) -> dict:
     """The train path: five Adam steps with ring attention through the
     flash kernel, against two steps through the plain ring; then the
@@ -701,7 +776,6 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
     import numpy as np
     import torch
     from scanner_tpu_torch.kernels import attention, cuda_ops
-    from scanner_tpu_torch.kernels.attention import NEG_INF
     from scanner_tpu_torch.models import pose as pose_mod
     from scanner_tpu_torch.models import pose_train as ptrain
     from scanner_tpu_torch.parallel import make_ring_attention
@@ -752,27 +826,14 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
               f"impl=cuda losses {losses[:2]} differ from impl=xla "
               f"{xla_losses} by more than rel 1e-3")
     step_s = float(np.mean(secs[2:]))
-    # the kernel on the step's own inputs, laid out as the one-rank kernel
-    # ring lays them out: (B, T, H, D) -> (B * H, T, D), q pre-scaled,
-    # from an empty carry, not causal
     q, k, v = seen[0]
     B, T, H, D = q.shape
     check((B, T, H * D) == (TRAIN_BATCH, TRAIN_TIME, C) and H == heads
           and (B * H, T, D) == TRAIN_FLASH_SHAPE,
           f"the ring saw q {tuple(q.shape)}, not (B, T, heads, C / heads) "
           f"with (B * heads, T, D) = {TRAIN_FLASH_SHAPE}")
-
-    def rows(x, s=1.0):
-        return (x.float() * s).permute(0, 2, 1, 3).reshape(B * H, T, D)
-    args = [rows(q, D ** -0.5), rows(k), rows(v),
-            torch.full((B * H, T), NEG_INF, device=dev),
-            torch.zeros(B * H, T, device=dev),
-            torch.zeros(B * H, T, D, device=dev)]
-    step_errs = {"m": 0.0, "l": 0.0, "out": 0.0, "f32_out": 0.0}
-    compare_flash(attention.flash_block_update(*args, 0, 0), args, 0, 0,
-                  False, "the first train step's q, k, v", step_errs)
-    for name, err in step_errs.items():
-        errs[name] = max(errs[name], err)
+    args, step_errs = flash_on_ring_inputs(
+        q, k, v, dev, "the first train step's q, k, v", errs)
     flash_ms = cuda_ms(lambda: attention.flash_block_update(*args, 0, 0),
                        20)
     return dict(clip=f"{TRAIN_BATCH}x{TRAIN_TIME}x{TRAIN_SIZE}x"
@@ -786,6 +847,367 @@ def pose_train(dev, seed: int, errs: dict) -> dict:
                 step_inputs_max_abs_err=json.dumps(step_errs),
                 flash_ms_at_step_shape=flash_ms,
                 flash_share_of_step=2 * flash_ms / (step_s * 1e3))
+
+
+# [train]: every trainer of the port at its shipped configuration and the
+# reference's default step count (scanner_tpu/models/*_train.py), and the
+# frames one step of each reads
+TRAIN_RUNS = {"pose": 300, "detect": 300, "face": 300, "embed": 300,
+              "seg": 400}
+TRAIN_FRAMES_PER_STEP = {"pose": 4 * 2, "detect": 4, "face": 4,
+                         "embed": 16, "seg": 4}
+RESUME_STEPS = (20, 10)     # pose: N steps, save, restore, k more
+SERVE_BLOBS, SERVE_SCENES = 256, 64
+STEP_MARK = "chip_smoke_train_step_end"
+
+
+class StepLog(logging.Handler):
+    """Each logged train step's loss and host time; at each a profiler
+    marker, so a trace shows where a step ends (a loop logs a step after
+    reading its loss, which waits for the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses, self.times = [], []
+
+    def emit(self, record):
+        import torch
+        self.losses.append(float(record.args[-1]))
+        self.times.append(time.time())
+        with torch.profiler.record_function(STEP_MARK):
+            pass
+
+
+@contextlib.contextmanager
+def step_log():
+    """A StepLog on the port's train logger, which logs every step at
+    log_every=1 (kept off stderr)."""
+    log = logging.getLogger("scanner_tpu_torch.train")
+    handler, level, propagate = StepLog(), log.level, log.propagate
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    try:
+        yield handler
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+        log.propagate = propagate
+
+
+def step_idle_share(run, path: str) -> dict:
+    """run(3) — three train steps — under torch.profiler; over the third
+    step (between the second and third step markers) the step's wall
+    ms, the card's busy ms (the union of kernels, copies and fills) and
+    its idle share.  Taken again, twice at most, when the trace holds no
+    device event in the step."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with step_log():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(3)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        marks = sorted(e["ts"] for e in events
+                       if e.get("name") == STEP_MARK and e.get("ph") == "X")
+        check(len(marks) == 3, f"{len(marks)} step markers in a 3-step "
+                               f"trace")
+        a, b = marks[1], marks[2]
+        spans = sorted((max(e["ts"], a), min(e["ts"] + e["dur"], b))
+                       for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset")
+                       and e["ts"] < b and e["ts"] + e["dur"] > a)
+        busy, end = 0.0, a
+        for x, y in spans:
+            busy += max(0.0, y - max(x, end))
+            end = max(end, y)
+        if busy:
+            break
+    check(busy > 0, "the profiled train step holds no device time")
+    return dict(step_ms=round((b - a) / 1e3, 4),
+                device_busy_ms=round(busy / 1e3, 4),
+                device_idle_share=round(1.0 - busy / (b - a), 4),
+                device_events=len(spans))
+
+
+def train_phase(st, dev, work: str, seed: int, errs: dict) -> dict:
+    """The port's train loops on the card at the shipped configurations
+    and the reference's step counts: each saves through TrainCheckpointer
+    and exports its `.npz`; finite losses, the last below the first, and
+    for pose (the one-rank "cuda" ring) the flash kernel launched once per
+    temporal block and step and held against its plain version on the q,
+    k, v the first step gave it.  Then pose trained N steps, saved,
+    restored into a fresh model and Adam and trained k more, against an
+    uninterrupted N + k run; then PoseDetect on the pose checkpoint and
+    ObjectDetect on the detector's `.npz` through the engine, against the
+    in-memory trained models and beside the shipped and random weights."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.kernels import attention
+    from scanner_tpu_torch.models import checkpoint
+    from scanner_tpu_torch.models import detect_train as dt
+    from scanner_tpu_torch.models import detection, pose
+    from scanner_tpu_torch.models import pose_train as pt
+    from scanner_tpu_torch.models import seg_train as sg
+    from scanner_tpu_torch.parallel import make_ring_attention
+    root = os.path.join(work, "train")
+    os.makedirs(root)
+    seen, made = [], {}     # the ring's first q, k, v; the models trained
+    ring = make_ring_attention(impl="cuda")
+
+    def attn(q, k, v):
+        if not seen:
+            seen.append((q.detach(), k.detach(), v.detach()))
+        return ring(q, k, v)
+
+    def keep(name, fn):
+        def made_by(*args):
+            made[name] = fn(*args)
+            return made[name]
+        return made_by
+    saves = []
+    real_save = checkpoint.TrainCheckpointer.save
+
+    def timed_save(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        real_save(self, *args)
+        saves.append(time.time() - t0)
+    runs = {
+        "pose": lambda d, n: pt.train_pose(d, steps=n, log_every=1,
+                                           attn_fn=attn, device=dev),
+        "detect": lambda d, n: dt.train_detector(
+            d, dt.render_rect_scene, steps=n, seed=0, log_every=1,
+            export_npz=d + ".npz", device=dev),
+        "face": lambda d, n: dt.train_detector(
+            d, dt.render_face_scene, steps=n, seed=1, log_every=1,
+            export_npz=d + ".npz", device=dev),
+        "embed": lambda d, n: dt.train_embedding(
+            d, steps=n, seed=2, log_every=1, export_npz=d + ".npz",
+            device=dev),
+        "seg": lambda d, n: sg.train_segmenter(
+            d, steps=n, log_every=1, export_npz=d + ".npz", device=dev)}
+    out, trained = {}, {}
+    t_phase = time.time()
+    real = (pt._initial_state, dt._initial_detector, real_save)
+    pt._initial_state = keep("pose", pt._initial_state)
+    dt._initial_detector = keep("detect", dt._initial_detector)
+    checkpoint.TrainCheckpointer.save = timed_save
+    try:
+        for name, run in runs.items():
+            steps, d = TRAIN_RUNS[name], os.path.join(root, name)
+            attention.reset_counts()
+            saves.clear()
+            with step_log() as sl:
+                t0 = time.time()
+                final = run(d, steps)
+                call_s = time.time() - t0
+            launches = attention.flash_launches
+            if name in made:   # the in-memory model this run trained
+                trained[name] = made.pop(name)
+            losses = sl.losses
+            check(len(losses) == steps and final == losses[-1]
+                  and bool(np.isfinite(losses).all()),
+                  f"[train] {name}: {len(losses)} logged losses for {steps} "
+                  f"steps, final {final}, finite "
+                  f"{bool(np.isfinite(losses).all())}")
+            check(losses[-1] < losses[0], f"[train] {name}: the last loss "
+                                          f"{losses[-1]} is not below the "
+                                          f"first {losses[0]}")
+            if name == "pose":
+                blocks = len([m for m in trained["pose"].modules()
+                              if type(m).__name__ == "TemporalBlock"])
+                check(launches == blocks * steps,
+                      f"[train] pose launched the flash kernel {launches} "
+                      f"times in {steps} steps of {blocks} temporal blocks")
+                out["pose_flash_launches"] = launches
+                checkpoint.export_params_npz(checkpoint.load_params(
+                    d, pose.VideoPoseNet(width=pt.WIDTH)), d + ".npz")
+            else:
+                check(launches == 0, f"[train] {name} launched the flash "
+                                     f"kernel {launches} times")
+            check(checkpoint.TrainCheckpointer(d).latest_step() == steps
+                  and os.path.isfile(d + ".npz"),
+                  f"[train] {name}: no checkpoint at step {steps} or no "
+                  f".npz")
+            steady = (len(sl.times) - 1) / (sl.times[-1] - sl.times[0])
+            out[f"{name}_steps"] = steps
+            out[f"{name}_loss_first_last"] = json.dumps(
+                [losses[0], losses[-1]])
+            out[f"{name}_call_s"] = round(call_s, 4)
+            out[f"{name}_steps_per_s"] = round(steady, 3)
+            out[f"{name}_frames_per_s"] = round(
+                steady * TRAIN_FRAMES_PER_STEP[name], 3)
+            out[f"{name}_save_s"] = round(saves[0], 4)
+        out["train_s"] = round(time.time() - t_phase, 3)
+        for name, run in runs.items():
+            out[f"{name}_step_profile"] = json.dumps(step_idle_share(
+                lambda n: run(os.path.join(root, f"{name}_profiled"), n),
+                os.path.join(root, f"{name}_step_trace.json")))
+    finally:
+        (pt._initial_state, dt._initial_detector,
+         checkpoint.TrainCheckpointer.save) = real
+
+    # -- the flash kernel on the train path's own q, k, v -------------
+    q, k, v = seen[0]
+    B, T, H, D = q.shape
+    args, own = flash_on_ring_inputs(q, k, v, dev,
+                                     "[train]'s first step's q, k, v", errs)
+
+    def kernel_call():
+        attention.flash_block_update(*args, 0, 0)
+    f_dev = device_ms(kernel_call, 50, ["flash_tf32_kernel",
+                                        "transpose_v_kernel"])
+    fq, fk, fv = args[:3]
+    bound_ms, bound_by, _ = flash_bound(B * H, T, T, D)
+    out.update(
+        flash_shape=f"{B * H}x{T}x{T}x{D}",
+        flash_max_abs_err=json.dumps(own),
+        flash_ms=cuda_ms(kernel_call, 50),
+        flash_device_ms=f_dev["flash_tf32_kernel"],
+        flash_transpose_device_ms=f_dev["transpose_v_kernel"],
+        flash_events_per_call=json.dumps(f_dev["events per call"]),
+        flash_empty_takes=f_dev["empty takes"],
+        flash_plain_ms=cuda_ms(lambda: attention.flash_block_update_plain(
+            *args, 0, 0), 50),
+        flash_library_ms=cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                fq, fk, fv, scale=1.0), 50),
+        flash_bound_ms=bound_ms, flash_bound_by=repr(bound_by))
+
+    # -- resume: N steps, save, restore into a fresh model + Adam, k more
+    n, extra = RESUME_STEPS
+    torch.backends.cudnn.deterministic = True
+    try:
+        with step_log() as full:
+            pt.train_pose(os.path.join(root, "resume_full"), steps=n + extra,
+                          log_every=1, attn_fn=ring, device=dev)
+        with step_log() as part:
+            pt.train_pose(os.path.join(root, "resume_part"), steps=n,
+                          log_every=1, attn_fn=ring, device=dev)
+        model = pose.init_params(seed + 1, device=dev, width=pt.WIDTH,
+                                 attn_fn=ring)
+        opt, step = pose.make_train_step(model)
+        ckpt = checkpoint.TrainCheckpointer(os.path.join(root,
+                                                         "resume_part"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        at = ckpt.restore(model, opt)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        check(at == n, f"[train] resume restored step {at}, not {n}")
+        rng = np.random.RandomState(0)      # train_pose's default seed
+        for _ in range(n):
+            pt.synth_batch(rng, 4, 2, pt.SIZE)
+        resumed = []
+        for _ in range(extra):
+            clips, targets, _ = pt.synth_batch(rng, 4, 2, pt.SIZE)
+            resumed.append(float(step(torch.from_numpy(clips).to(dev),
+                                      torch.from_numpy(targets).to(dev))))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = full.losses[n:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    check(part.losses == full.losses[:n] or max(
+        abs(a - b) / abs(b) for a, b in zip(part.losses, full.losses)) <= 1e-4,
+        "[train] resume: the N-step run's losses differ from the first N "
+        "of the uninterrupted run by more than rel 1e-4")
+    check(rel <= 1e-4, f"[train] resume: the {extra} steps after the "
+                       f"restore differ from the uninterrupted run's by "
+                       f"rel {rel} > 1e-4")
+    out.update(resume=f"{n}+{extra}", resume_bit_equal=resumed == want,
+               resume_max_rel_diff=rel, restore_s=round(restore_s, 4))
+
+    # -- serve what was trained, through the engine on the card ---------
+    out.update(serve_checks(st, dev, work, seed, trained, root))
+    out["phase_s"] = round(time.time() - t_phase, 3)
+    return out
+
+
+def serve_checks(st, dev, work: str, seed: int, trained: dict,
+                 root: str) -> dict:
+    """PoseDetect on the trained pose checkpoint and ObjectDetect on the
+    trained detector's `.npz` through Client(device="cuda"): their rows
+    against the in-memory trained models' outputs, and their quality
+    beside the shipped and random weights' on the same frames."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch.models import detect_train as dt
+    from scanner_tpu_torch.models import detection, pose
+    from scanner_tpu_torch.models import pose_train as pt
+    clips, _, centers = pt.synth_batch(np.random.RandomState(seed + 5),
+                                       SERVE_BLOBS // 8, 8, pt.SIZE)
+    blobs = clips.reshape(SERVE_BLOBS, pt.SIZE, pt.SIZE, 3)
+    centers = centers.reshape(SERVE_BLOBS, 2)
+    rng = np.random.RandomState(seed + 6)
+    scenes = [dt.render_rect_scene(rng) for _ in range(SERVE_SCENES)]
+    gpu = st.Client(db_path=os.path.join(work, "train_db"), device=str(dev))
+    gpu.new_table("blob", ["frame"], [[f] for f in blobs],
+                  codecs={"frame": "pickle"})
+    gpu.new_table("rect", ["frame"], [[sc[0]] for sc in scenes],
+                  codecs={"frame": "pickle"})
+    out = {}
+    for what, kw in (("trained", {"checkpoint_dir": os.path.join(root,
+                                                                 "pose")}),
+                     ("shipped", {}), ("random", {"pretrained": False})):
+        run_pose(gpu, st, f"poses_{what}", **kw)
+        kp = np.stack(rows_of(gpu, st, f"poses_{what}"))
+        out[f"pose_{what}_err_px"] = float(np.hypot(
+            kp[:, 0, 0] * 4 - centers[:, 0],
+            kp[:, 0, 1] * 4 - centers[:, 1]).mean())
+        if what == "trained":
+            served = kp
+    ref = pose.VideoPoseNet(width=pt.WIDTH)
+    ref.load_state_dict(trained["pose"].state_dict())
+    ref = ref.to(dev).eval()
+    with torch.no_grad():
+        mem = np.concatenate([pose.apply_and_peaks(
+            ref, torch.from_numpy(blobs[i:i + 8]).to(dev)[:, None])
+            .cpu().numpy() for i in range(0, SERVE_BLOBS, 8)])
+    step = float(np.abs(served[:, 0, :2] - mem[:, 0, :2]).max())
+    score = float(np.abs(served[:, :, 2] - mem[:, :, 2]).max())
+    check(step <= 1.0 and score <= 1e-3,
+          f"[train] PoseDetect on the checkpoint differs from the in-memory "
+          f"model: kp0 by {step} cells, scores by {score}")
+    check(out["pose_trained_err_px"] < out["pose_random_err_px"],
+          f"[train] the trained pose model's error "
+          f"{out['pose_trained_err_px']:.3f} px is not below a random "
+          f"model's {out['pose_random_err_px']:.3f}")
+    out.update(pose_served_identical_share=float(
+        (served == mem).all(axis=(1, 2)).mean()),
+        pose_served_max_cell_diff=step, pose_served_max_score_diff=score)
+    truth = [sc[1] for sc in scenes]
+    for what, kw in (("trained", {"checkpoint_dir": os.path.join(
+            root, "detect.npz")}), ("shipped", {}),
+            ("random", {"pretrained": False})):
+        run_op(gpu, st, "rect", "ObjectDetect", f"det_{what}", width=8,
+               score_thresh=0.3, **kw)
+        rows = np.stack(rows_of(gpu, st, f"det_{what}"))
+        hits, total = dt.recall(rows, truth, detection.unpack_detections)
+        out[f"detect_{what}_recall"] = hits / total
+        if what == "trained":
+            served = rows
+    net = detection.AnchoredModel(trained["detect"], 0.3).eval()
+    frames = torch.from_numpy(np.stack([sc[0] for sc in scenes])).to(dev)
+    with torch.no_grad():
+        mem = np.concatenate([net(frames[i:i + 8]).cpu().numpy()
+                              for i in range(0, SERVE_SCENES, 8)])
+    agree = min(dt.boxes_agree(served, mem, detection.unpack_detections),
+                dt.boxes_agree(mem, served, detection.unpack_detections))
+    check(agree >= 0.95, f"[train] ObjectDetect on the .npz agrees with "
+                         f"the in-memory detector on {agree:.3f} of "
+                         f"frames < 0.95")
+    check(out["detect_trained_recall"] > out["detect_random_recall"],
+          f"[train] the trained detector's recall "
+          f"{out['detect_trained_recall']:.3f} is not above a random "
+          f"model's {out['detect_random_recall']:.3f}")
+    out.update(detect_served_boxes_agree=agree,
+               detect_served_max_abs_diff=float(np.abs(served - mem).max()))
+    gpu.stop()
+    return out
 
 
 def register_smoke_ops(st):
@@ -1462,8 +1884,9 @@ def device_trace_phase(gpu, st, work: str, n_frames: int,
     """Config 1 at profiler_level=2: the job's torch.profiler capture
     merged into Profile.write_trace.  The histogram kernel's events by
     name: as many as the launches counted, each inside the capture's
-    host window and starting inside (or within 1 ms after) a host
-    evaluate:Histogram span.  One capture, as a user's job takes it."""
+    host window and launched by a runtime call inside a host
+    evaluate:Histogram span (traced_histograms).  One capture, as a
+    user's job takes it."""
     from scanner_tpu_torch.kernels import cuda_ops
     path = os.path.join(work, "config1_level2_trace.json")
     jobs = []
@@ -1484,10 +1907,28 @@ def traced_histograms(prof, path: str, span: str) -> dict:
     """Write one job's profile with its single device capture merged
     (pid >= DEVICE_PID_BASE) to `path`; checks that the capture holds
     device events and histogram kernels, every one of them inside the
-    host window and starting inside (or within 1 ms after) a host span
-    named `span`.  Returns the counts, the window and the card's busy
-    share over it."""
-    from scanner_tpu_torch.util.torchprof import DEVICE_PID_BASE
+    host window, and each tied by the trace's correlation id to the
+    runtime call that launched it (cudaLaunchKernel*, or cudaGraphLaunch
+    for a kernel of a graph replay), and that call lies inside a host
+    span named `span`.  The correlation id is what orders a kernel after
+    its call: a kernel's time in the trace is the card's timer converted
+    to the host's clock, which can read a kernel tens to hundreds of
+    microseconds before the call that launched it, so those times are
+    reported, not compared.  The kernel itself may start after the span
+    has ended: a launch returns before the card runs it, and a graph
+    replay runs its nodes in order.
+    Returns the counts, the window, the card's busy share over it, and
+    what ties each kernel to its span: its start after the span's end
+    and after its launch call's start and end (and, over every kernel
+    of the capture launched by a runtime call, the least start after
+    its call's start and how many read before it), its start after the
+    first kernel of the same launch (a graph's earlier nodes), the
+    launch calls' margins inside their spans, and the anchor marker's
+    duration (torchprof aligns the capture by the marker's start; the
+    host clock is read inside it, so the alignment is off by at most
+    that duration)."""
+    from scanner_tpu_torch.util.torchprof import (ANCHOR, DEVICE_PID_BASE,
+                                                  _read_raw_events)
     recs = [r for p in prof.profilers for r in p.device_traces]
     check(len(recs) == 1, f"a level-2 job captured {len(recs)} device "
                           f"traces, not 1")
@@ -1507,18 +1948,65 @@ def traced_histograms(prof, path: str, span: str) -> dict:
                        f"the host window")
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("pid", 0) < DEVICE_PID_BASE and e.get("name") == span]
-    inside = sum(1 for e in hist
-                 if any(a <= e["ts"] <= b + 1e3 for a, b in spans))
-    check(inside == len(hist), f"{len(hist) - inside} of {len(hist)} "
-                               f"histogram kernels start outside every "
-                               f"host {span} span")
+
+    def corr(e):
+        return (e.get("args") or {}).get("correlation")
+    calls = {corr(e): e for e in dev if e.get("cat") in (
+        "cuda_runtime", "cuda_driver") and corr(e) is not None}
+    first = {}
+    for e in kernels:
+        if corr(e) is not None:
+            first[corr(e)] = min(first.get(corr(e), e["ts"]), e["ts"])
+    lags, leads, delays, in_launch, margins, names = [], [], [], [], [], \
+        set()
+    for e in hist:
+        call = calls.get(corr(e))
+        check(call is not None, f"histogram kernel at {e['ts']:.1f} us has "
+                                f"no launch call of correlation {corr(e)} "
+                                f"in the trace")
+        check(call["name"].startswith(LAUNCH_CALLS),
+              f"histogram kernel at {e['ts']:.1f} us is tied to "
+              f"{call['name']}, not a launch call")
+        names.add(call["name"])
+        c0, c1 = call["ts"], call["ts"] + call["dur"]
+        holder = [(a, b) for a, b in spans if a <= c0 and c1 <= b]
+        check(bool(holder), f"the {call['name']} that launched a histogram "
+                            f"kernel ({c0:.1f}-{c1:.1f} us) lies outside "
+                            f"every host {span} span")
+        a, b = holder[0]
+        lags.append(e["ts"] - b)
+        leads.append(e["ts"] - c0)
+        delays.append(e["ts"] - c1)
+        in_launch.append(e["ts"] - first[corr(e)])
+        margins.append(min(c0 - a, b - c1))
+    # every kernel of the capture against the runtime call that
+    # launched it: how far the trace's clocks disagree
+    every = [e["ts"] - calls[corr(e)]["ts"] for e in kernels
+             if calls.get(corr(e)) is not None]
+    raw = _read_raw_events(recs[0])
+    anchor = next(e for e in raw if e.get("name") == ANCHOR
+                  and e.get("ph") == "X")
+
+    def us(xs):
+        return json.dumps([round(x, 1) for x in sorted(xs)])
     # the card's busy share over the capture: kernels, copies and fills
     busy_us = sum(e.get("dur", 0.0) for e in dev if e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset"))
     return dict(device_events=len(dev), kernel_events=len(kernels),
                 histogram_kernel_events=len(hist),
                 histogram_kernel_name=repr(hist[0]["name"][:80]),
-                histogram_kernels_in_spans=inside, spans=len(spans),
+                histogram_kernels_launched_in_spans=len(hist),
+                launch_calls=repr(sorted(names)), spans=len(spans),
+                kernel_start_after_span_end_us=us(lags),
+                kernel_start_after_launch_start_us=us(leads),
+                kernel_start_after_launch_end_us=us(delays),
+                any_kernel_start_after_launch_start_us_min=round(
+                    min(every), 1),
+                any_kernel_before_launch=sum(x < 0 for x in every),
+                any_kernel_launches=len(every),
+                kernel_start_after_launch_first_kernel_us=us(in_launch),
+                launch_call_margin_in_span_us_min=round(min(margins), 1),
+                anchor_marker_us=round(float(anchor.get("dur", 0.0)), 1),
                 window_s=round((hi - lo) / 1e6, 4),
                 device_busy_ms=round(busy_us / 1e3, 4),
                 device_busy_share=round(busy_us / (hi - lo), 6),
@@ -1595,6 +2083,10 @@ def worker_task_phase(gpu, st, n_frames: int, cuda_ops) -> dict:
 
 
 CLUSTER_THREADS = ("rpc-", "master-", "worker-")
+# the runtime and driver calls that launch kernels (a trace event's name
+# starts with one of them)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
+                "cuGraphLaunch")
 
 
 def cluster_phase(st, frames, work: str, main_rows: dict,
@@ -1774,22 +2266,30 @@ def gang_phase(st, frames, work: str, main_rows: dict, cuda_ops,
         "frames", ["frame"], [[f] for f in frames],
         codecs={"frame": "pickle"})
     runs = []
+    in_flight = [0]     # spawn_member calls not yet returned
+    lock = threading.Lock()
     spawn = gang.spawn_member
 
     def recording(request, **kw):
         t0 = time.time()
-        res = spawn(request, **kw)
-        runs.append({"pid": request["process_id"],
-                     "gang": request["gang_id"], "epoch": request["epoch"],
-                     "task": request["task_idx"],
-                     "sharded": request["sharded"], "ok": res.get("ok"),
-                     "stage": res.get("stage"), "error": res.get("error"),
-                     "phases": dict(res.get("phases") or {}),
-                     "shard": dict(res.get("shard") or {}),
-                     "launches": int((res.get("cuda_ops") or {})
-                                     .get("histogram_launches", 0)),
-                     "wall_s": time.time() - t0})
-        return res
+        with lock:
+            in_flight[0] += 1
+        try:
+            res = spawn(request, **kw)
+            runs.append({
+                "pid": request["process_id"], "gang": request["gang_id"],
+                "epoch": request["epoch"], "task": request["task_idx"],
+                "sharded": request["sharded"], "ok": res.get("ok"),
+                "stage": res.get("stage"), "error": res.get("error"),
+                "phases": dict(res.get("phases") or {}),
+                "shard": dict(res.get("shard") or {}),
+                "launches": int((res.get("cuda_ops") or {})
+                                .get("histogram_launches", 0)),
+                "wall_s": time.time() - t0})
+            return res
+        finally:
+            with lock:
+                in_flight[0] -= 1
 
     gang.spawn_member = recording
     sharded0 = gang.sharded_enabled()
@@ -1824,6 +2324,12 @@ def gang_phase(st, frames, work: str, main_rows: dict, cuda_ops,
                 fired = faults.fired("gang.collective") if plan else 0
             finally:
                 faults.clear()
+            # the job ends once the task's result is in; a member's
+            # spawn_member may still be reaping its child and reading its
+            # result file, so its run is recorded a moment later
+            deadline = time.time() + 30
+            while in_flight[0] and time.time() < deadline:
+                time.sleep(0.05)
             s = client.job_status()
             rows = stored_items(client._db, f"gang_{name}")
             check(len(rows) == len(frames)
@@ -1886,11 +2392,13 @@ def gang_phase(st, frames, work: str, main_rows: dict, cuda_ops,
                 out[f"{name}_decode_rows"] = json.dumps(
                     [r["shard"].get("decode_rows") for r in ok])
         for ph in ("spawn", "device", "rendezvous", "stage", "barrier",
-                   "collective", "assemble"):
+                   "collective", "assemble", "teardown"):
             vals = [r["phases"][ph] for r in all_runs
                     if ph in r["phases"]]
             out[f"{ph}_median_s"] = round(median(vals), 4) \
                 if vals else None
+        out["teardown_max_s"] = round(max(
+            r["phases"].get("teardown", 0.0) for r in all_runs), 4)
         out["member_wall_median_s"] = round(
             median([r["wall_s"] for r in all_runs]), 4)
         out["member_runs"] = len(all_runs)
@@ -2032,7 +2540,8 @@ def framecache_phase(st, frames, dev, seed: int, work: str) -> dict:
                hits=json.dumps(hits), rows=json.dumps(rows),
                task_bytes=IO * wire.shape[1],
                assemble_ms=round(times["assemble_from_pages"], 4),
-               assemble_device_ms=round(assemble_dev_ms[""], 4),
+               assemble_device_ms=assemble_dev_ms["all kernels"] and round(
+                   assemble_dev_ms["all kernels"], 4),
                staged_put_ms=round(times["staged_device_put_from_host"], 4))
 
     # -- the closed loop: hbm_pressure -> frame_cache_shrink -------------
@@ -2169,6 +2678,8 @@ def hist_timings(dev, seed: int) -> dict:
         prof = device_ms(cycling(cuda_ops.histogram_frames, batches),
                          6 * COLD_BATCHES, ["hist"])
         out[key] = prof["hist"]
+        out[f"{key}_events_per_call"] = prof["events per call"]["hist"]
+        out[f"{key}_empty_takes"] = prof["empty takes"]
         # the wrapper runs the kernel and nothing else on the card: no
         # fill, no second pass.  The count may read under 1 (the profiler
         # can drop a record), never over.
@@ -2179,8 +2690,8 @@ def hist_timings(dev, seed: int) -> dict:
             out["device_ms_per_call_all_kernels"] = prof["all kernels"]
             out["kernels_per_call"] = prof["kernels per call"]
         del batches
-    out["flat_over_random"] = (out["kernel_device_ms_flat"]
-                               / out["kernel_device_ms_cold"])
+    out["flat_over_random"] = ratio(out["kernel_device_ms_flat"],
+                                    out["kernel_device_ms_cold"])
     return out
 
 
@@ -2421,9 +2932,11 @@ def main() -> int:
         # -- the pose model: serve, then train ------------------------
         phase("pose_serve", **pose_serve(st, work, args.seed))
         train = pose_train(dev, args.seed, flash_errs)
-        flash_launches = train["flash_launches"]
-        flash_err = max(flash_errs[k] for k in ("m", "l", "out"))
         phase("pose_train", **train)
+        tr = train_phase(st, dev, work, args.seed, flash_errs)
+        phase("train", **tr, card=repr(card))
+        flash_launches = train["flash_launches"] + tr["pose_flash_launches"]
+        flash_err = max(flash_errs[k] for k in ("m", "l", "out"))
 
         # -- the model zoo, then the golden chain ----------------------
         phase("model_serve", **model_serve(st, work, args.seed),
@@ -2452,12 +2965,15 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = x.numel() * HIST_OPS_PER_BYTE / INT32_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
-        hist_dev_ms = device_ms(lambda: cuda_ops.histogram_frames(x), 50,
-                                ["hist"])["hist"]
+        warm = device_ms(lambda: cuda_ops.histogram_frames(x), 50, ["hist"])
         phase("timings", shape=f"{b}x{hh}x{ww}x{c}", kernel_ms=ms,
-              kernel_device_ms=hist_dev_ms, **hist, plain_ms=plain_ms,
+              kernel_device_ms=warm["hist"],
+              kernel_device_ms_events_per_call=warm["events per call"][
+                  "hist"], kernel_device_ms_empty_takes=warm["empty takes"],
+              **hist, plain_ms=plain_ms,
               library_ms=library_ms, bound_ms=bound_ms,
-              device_share_of_bound=bound_ms / hist["kernel_device_ms_cold"],
+              device_share_of_bound=ratio(bound_ms,
+                                          hist["kernel_device_ms_cold"]),
               launches_per_600_frame_run=launches[1], card=repr(card))
 
         # -- the flash kernel at tools/tpu_window.py's shape and at the
@@ -2490,11 +3006,13 @@ def main() -> int:
                   kernel_ms=f_ms,
                   kernel_device_ms=f_dev["flash_tf32_kernel"],
                   transpose_device_ms=f_dev["transpose_v_kernel"],
+                  events_per_call=json.dumps(f_dev["events per call"]),
+                  empty_takes=f_dev["empty takes"],
                   plain_ms=f_plain_ms, library_ms=f_library_ms,
                   library="F.scaled_dot_product_attention(f32)",
                   bound_ms=f_bound_ms, bound_by=f_by,
-                  device_share_of_bound=f_bound_ms
-                  / f_dev["flash_tf32_kernel"],
+                  device_share_of_bound=ratio(f_bound_ms,
+                                              f_dev["flash_tf32_kernel"]),
                   wrapper_share_of_bound=f_bound_ms / f_ms,
                   achieved_tflops=f_flops / (f_ms * 1e-3) / 1e12,
                   faster_than_library=f_ms < f_library_ms,

@@ -394,6 +394,11 @@ def member_timeout_s(task_timeout: float) -> Optional[float]:
     return init_timeout_s() + max(float(task_timeout), 30.0)
 
 
+# seconds a member runner may take to leave its group and exit after it
+# wrote its result
+TEARDOWN_GRACE_S = 10.0
+
+
 def spawn_member(request: Dict[str, Any],
                  timeout: Optional[float] = None,
                  env: Optional[Dict[str, str]] = None,
@@ -408,7 +413,12 @@ def spawn_member(request: Dict[str, Any],
     False means the gang was aborted underneath this member (the
     master's heartbeat gang-liveness list) — the runner is reaped
     immediately instead of burning the member timeout blocked in a
-    collective whose peer is gone.
+    collective whose peer is gone.  A runner whose result file exists
+    has finished its work and only leaves the group: `alive` is no
+    longer polled (the writer's commit retires the gang from that list
+    while a slower member may still be tearing down), and the runner
+    gets TEARDOWN_GRACE_S to exit before it is killed; its result
+    stands either way.
 
     Chaos hooks fire HERE, in the worker process, so crash-mode plans
     model host death: the child carries PR_SET_PDEATHSIG and dies with
@@ -460,6 +470,7 @@ def spawn_member(request: Dict[str, Any],
         env=child_env)
     deadline = time.time() + timeout if timeout else None
     injected_collective = False
+    finished_at = None
     try:
         while proc.poll() is None:
             if not injected_collective and os.path.exists(joined):
@@ -476,6 +487,18 @@ def spawn_member(request: Dict[str, Any],
                     return {"ok": False, "stage": "collective",
                             "transient": True,
                             "error": f"{type(e).__name__}: {e}"}
+            if finished_at is None and os.path.exists(res_path):
+                finished_at = time.time()
+            if finished_at is not None:
+                if time.time() - finished_at > TEARDOWN_GRACE_S:
+                    _log.warning("gang member %s: runner still tearing "
+                                 "down %.1fs after its result: killing "
+                                 "it", detail, TEARDOWN_GRACE_S)
+                    proc.kill()
+                    proc.wait()
+                    break
+                time.sleep(0.05)
+                continue
             if alive is not None and not alive():
                 _log.warning("gang member %s: gang aborted underneath "
                              "this member — reaping the runner",
@@ -496,9 +519,12 @@ def spawn_member(request: Dict[str, Any],
                                  "(peer lost mid-collective?)"}
             time.sleep(0.05)
         if os.path.exists(res_path):
+            # `teardown`: the runner's result written to its exit
+            teardown = max(0.0, time.time() - os.path.getmtime(res_path))
             with open(res_path, "rb") as fh:
                 res = cloudpickle.loads(fh.read())
             _fold_startup(res, t_spawn)
+            res["phases"]["teardown"] = teardown
             return res
         # no result file: the runner died hard (injected host loss, OOM
         # kill, a crashed peer's coordination-service shutdown) — the
@@ -686,10 +712,12 @@ def _all_gather_bytes(num_processes: int, payload: bytes) -> List[bytes]:
             for p in range(num_processes)]
 
 
-def run_member(req: Dict[str, Any]) -> Dict[str, Any]:
+def run_member(req: Dict[str, Any], publish=None) -> Dict[str, Any]:
     """The member body (runs inside the child process): rendezvous →
     evaluate → collective agreement → (member 0) save.  Returns a
-    result dict; never raises.
+    result dict; never raises.  `publish(result)`, when given, is called
+    with the finished result before the member leaves its process
+    group, so its parent has the result while the runner tears down.
 
     Phase instrumentation (docs/observability.md §Cross-host time):
     each phase gets a first-class child span under the gang root —
@@ -762,19 +790,30 @@ def run_member(req: Dict[str, Any]) -> Dict[str, Any]:
         except OSError:
             pass
     try:
-        res = _member_body(req, pid, num, tracer, ctx, attrs, phases)
-    except Exception as e:  # noqa: BLE001 — collective/commit errors
-        # surface as a transient member failure, not a child crash
-        res = {"ok": False, "stage": "collective", "transient": True,
-               "error": f"{type(e).__name__}: {e}",
-               "spans": tracer.drain_export()}
+        try:
+            res = _member_body(req, pid, num, tracer, ctx, attrs, phases)
+        except Exception as e:  # noqa: BLE001 — collective/commit errors
+            # surface as a transient member failure, not a child crash
+            res = {"ok": False, "stage": "collective", "transient": True,
+                   "error": f"{type(e).__name__}: {e}",
+                   "spans": tracer.drain_export()}
+        res.setdefault("phases", phases)
+        res.setdefault("role", role)
+        res["ready_at"] = ready_at
+        res["started_at"] = req.get("started_at")
+        res["cuda_ops"] = _kernel_counts()
+        if publish is not None:
+            publish(res)
+        if _faults.ACTIVE:
+            try:
+                # delay = a member that outlives its gang's commit
+                _faults.inject("gang.teardown",
+                               detail=f"gang={req.get('gang_id')}:"
+                                      f"e{req.get('epoch')}:m{pid}")
+            except Exception:  # noqa: BLE001 — the result is out
+                pass
     finally:
         shutdown()
-    res.setdefault("phases", phases)
-    res.setdefault("role", role)
-    res["ready_at"] = ready_at
-    res["started_at"] = req.get("started_at")
-    res["cuda_ops"] = _kernel_counts()
     return res
 
 
@@ -1206,11 +1245,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     import cloudpickle
     with open(req_path, "rb") as fh:
         req = cloudpickle.loads(fh.read())
-    res = run_member(dict(req, started_at=started_at))
-    tmp = res_path + ".tmp"
-    with open(tmp, "wb") as fh:
-        fh.write(cloudpickle.dumps(res))
-    os.replace(tmp, res_path)
+
+    def publish(res):
+        tmp = res_path + ".tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(cloudpickle.dumps(res))
+        os.replace(tmp, res_path)
+
+    res = run_member(dict(req, started_at=started_at), publish=publish)
+    if not os.path.exists(res_path):
+        publish(res)
     return 0 if res.get("ok") else 3
 
 

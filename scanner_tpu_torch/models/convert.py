@@ -1,13 +1,15 @@
-"""The JAX package's model parameters -> the port's module state.
+"""The JAX package's model parameters <-> the port's module state.
 
 Input is either the flat `.npz` key contract of the JAX package's
 exported weight files ({"params/Backbone_0/Conv_0/kernel": ndarray, ...},
 scanner_tpu/models/checkpoint.py export_params_npz) or a nested flax
 parameter tree of arrays ({"params": {"Backbone_0": {...}}}).  A torch
 parameter `A.B.weight` of a module whose FLAX_PARAMS maps "weight" to
-("kernel", fn) comes from the flax key `params/A/B/kernel`, with `fn`
-changing its layout (HWIO -> OIHW for convolutions, a transpose for
-dense kernels, a flip for transposed convolutions: models/nets.py).
+("kernel", fn, inv) comes from the flax key `params/A/B/kernel`, with
+`fn` changing its layout (HWIO -> OIHW for convolutions, a transpose for
+dense kernels, a flip for transposed convolutions: models/nets.py);
+`flax_params` goes the other way with `inv`, for the `.npz` files that
+models/checkpoint.py exports.
 
 Only numpy reads the weight files; nothing of the JAX package is
 imported.
@@ -23,7 +25,6 @@ import torch
 from torch import nn
 
 from .. import native
-from .nets import init_module_
 
 WEIGHTS_DIR = os.path.join(native.REPO_DIR, "scanner_tpu", "models",
                            "weights")
@@ -50,36 +51,61 @@ def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def _flax_entries(model: nn.Module):
+    """(flax key, torch name, parameter, layout in, layout out) of each
+    parameter of `model` that has a flax counterpart; a FLAX_PARAMS rule
+    of None marks a training-only parameter (detect_train's classifier)."""
+    for mod_name, mod in model.named_modules():
+        rules = getattr(mod, "FLAX_PARAMS", {})
+        for pname, p in mod.named_parameters(recurse=False):
+            rule = rules.get(pname, (pname, None, None))
+            if rule is None:
+                continue
+            leaf, fn, inv = rule
+            path = "/".join(["params"] + (mod_name.split(".") if mod_name
+                                          else []) + [leaf])
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            yield path, name, p, fn, inv
+
+
 def torch_state(params: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
     """The state dict of `model` built from JAX-package parameters; a
     missing key raises KeyError and a mis-shaped one ValueError, each
     naming the flax key."""
     flat = flatten_params(params)
     state: Dict[str, torch.Tensor] = {}
-    for mod_name, mod in model.named_modules():
-        rules = getattr(mod, "FLAX_PARAMS", {})
-        for pname, p in mod.named_parameters(recurse=False):
-            leaf, fn = rules.get(pname, (pname, None))
-            path = "/".join(["params"] + (mod_name.split(".") if mod_name
-                                          else []) + [leaf])
-            if path not in flat:
-                raise KeyError(f"weights are missing parameter {path}")
-            arr = flat[path]
-            if fn is not None:
-                arr = fn(arr)
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{path}: weight shape {np.asarray(flat[path]).shape} "
-                    f"does not give {tuple(p.shape)} (width mismatch?)")
-            name = f"{mod_name}.{pname}" if mod_name else pname
-            state[name] = torch.from_numpy(
-                np.array(arr, dtype=np.float32, order="C"))
+    for path, name, p, fn, _ in _flax_entries(model):
+        if path not in flat:
+            raise KeyError(f"weights are missing parameter {path}")
+        arr = flat[path]
+        if fn is not None:
+            arr = fn(arr)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{path}: weight shape {np.asarray(flat[path]).shape} "
+                f"does not give {tuple(p.shape)} (width mismatch?)")
+        state[name] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
     return state
 
 
+def flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of torch_state: `model`'s parameters under their flax
+    keys ("params/Backbone_0/Conv_0/kernel") in flax layouts, float32."""
+    out = {}
+    for path, _, p, _, inv in _flax_entries(model):
+        arr = p.detach().float().cpu().numpy()
+        out[path] = np.ascontiguousarray(inv(arr) if inv is not None
+                                         else arr)
+    return out
+
+
 def load_params(model: nn.Module, params: Any) -> nn.Module:
-    """Load JAX-package parameters (tree or flat dict) into `model`."""
-    model.load_state_dict(torch_state(params, model))
+    """Load JAX-package parameters (tree or flat dict) into `model`; a
+    training-only parameter (no flax counterpart) keeps its value."""
+    # torch_state raises on any flax-mapped parameter it cannot fill, so
+    # the keys strict loading would miss are the training-only ones
+    model.load_state_dict(torch_state(params, model), strict=False)
     return model
 
 
@@ -91,15 +117,11 @@ def load_npz(model: nn.Module, path: str) -> nn.Module:
 
 
 def load_weights(model: nn.Module, shipped: Optional[str],
-                 checkpoint_dir: Optional[str], seed: int,
-                 op: str) -> nn.Module:
-    """A model op's weights: an exported `.npz` at `checkpoint_dir`, else
-    the shipped file `shipped` (None: no shipped weights fit), else
-    random weights from `seed`."""
-    path = checkpoint_dir or (shipped_weights(shipped) if shipped else None)
-    if path is None:
-        return init_module_(model, seed)
-    if not path.endswith(".npz"):
-        raise ValueError(f"{op} loads exported .npz weight files; orbax "
-                         f"checkpoint directories are not ported ({path})")
-    return load_npz(model, path)
+                 checkpoint_dir: Optional[str], seed: int) -> nn.Module:
+    """A model op's weights: `checkpoint_dir` (an exported `.npz` or a
+    checkpoint directory the port's TrainCheckpointer wrote), else the
+    shipped file `shipped` (None: no shipped weights fit), else random
+    weights from `seed`."""
+    from .checkpoint import init_or_restore
+    return init_or_restore(model, checkpoint_dir or (
+        shipped_weights(shipped) if shipped else None), seed)

@@ -1,24 +1,47 @@
-"""The synthetic detection, face and embedding tasks: the numpy data
-half of the JAX package's models/detect_train.py.
+"""Train the SSD detector and the embedding net on the synthetic tasks
+and save checkpoints: the counterpart of the JAX package's
+models/detect_train.py.
+
+* **ObjectDetect** — 1-3 bright rectangles on a noisy dark background
+  (anchor-matched SSD loss).
+* **FaceDetect** — the same machinery on face-like targets (a bright
+  ellipse with two dark eyes), its own weights.
+* **FaceEmbedding** — K procedural-texture identities under crop,
+  brightness and noise augmentation, trained through a training-only
+  classifier; the embedding is the L2-normalised projection.
 
 The shipped weights `detect_ssd_w8.npz`, `face_ssd_w8.npz` and
-`embed_w8.npz` were trained on these scenes; the tests and
-`chip_smoke.py` make their frames and ground truth with them.  The train
-loops (`train_detector`, `train_embedding`) and the mp4 writer are not
-ported yet.  `recall` scores detections against the scenes' truth and
-`boxes_agree` two runs against each other.
+`embed_w8.npz` were trained on these scenes.  Each loop is Adam at 1e-3
+on the reference's losses (softmax cross entropy with positives weighted
+10x, Huber with delta 1) over batches drawn from
+`np.random.RandomState(seed)` in the reference's order, saves (steps,
+model, Adam) through models/checkpoint.py and can export the `.npz`
+weight file;
+
+    python -m scanner_tpu_torch.models.detect_train <out_dir> \
+        [--which all|detect|face|embed] [--device cpu]
+
+trains all three on the card.  `recall` scores detections against the
+scenes' truth and `boxes_agree` two runs against each other;
+`synth_scene_video` encodes through libav, so it runs where libav is.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .face import EmbeddingNet
 
 # shared synthetic-task geometry (training, tests and examples agree)
 SIZE = 64
 WIDTH = 8
 EMBED_DIM = 128
+EMBED_IDENTITIES = 16
 
 
 def render_rect_scene(rng: np.random.RandomState, size: int = SIZE,
@@ -134,11 +157,44 @@ def match_anchors(anchors: np.ndarray, gt: np.ndarray,
     return cls, deltas
 
 
+def synth_scene_video(path: str, renderer: Callable = None,
+                      num_frames: int = 24, size: int = SIZE,
+                      fps: float = 24.0, seed: int = 11):
+    """Encode a clip of independent synthetic scenes to mp4; returns the
+    per-frame ground-truth box lists (crf 14 keeps the rectangles crisp
+    enough for IoU checks)."""
+    from ..video.ingest import encode_frames_mp4
+
+    renderer = renderer or render_rect_scene
+    rng = np.random.RandomState(seed)
+    frames, gts = [], []
+    for _ in range(num_frames):
+        f, gt = renderer(rng, size)
+        frames.append(f)
+        gts.append(gt)
+    encode_frames_mp4(path, frames, size, size, fps=fps, keyint=8, crf=14)
+    return gts
+
+
 def box_iou(a, b) -> float:
     """IoU of two corner boxes [y1,x1,y2,x2] (unit coords)."""
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
     return float(_iou_matrix(a[None], b[None])[0, 0])
+
+
+def detection_batch(rng: np.random.RandomState, batch: int,
+                    anchors: np.ndarray, renderer: Callable,
+                    size: int = SIZE):
+    """(frames (B,S,S,3) u8, cls (B,N) i32, deltas (B,N,4) f32)."""
+    frames = np.zeros((batch, size, size, 3), np.uint8)
+    N = anchors.shape[0]
+    cls = np.zeros((batch, N), np.int32)
+    deltas = np.zeros((batch, N, 4), np.float32)
+    for b in range(batch):
+        frames[b], gt = renderer(rng, size)
+        cls[b], deltas[b] = match_anchors(anchors, gt)
+    return frames, cls, deltas
 
 
 def recall(rows, truths, unpack, iou=0.3):
@@ -168,3 +224,184 @@ def boxes_agree(rows_a, rows_b, unpack, iou=0.9):
         a, b = unpack(ra)["boxes"], unpack(rb)["boxes"]
         ok += all(any(same_box(x, y, iou) for y in b) for x in a)
     return ok / len(rows_a)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def adam_loop(model: nn.Module, loss_fn: Callable, batch_fn: Callable,
+              steps: int, log_every: int, name: str):
+    """Adam at 1e-3 on `model` for `steps` steps, each on the numpy
+    arrays batch_fn() returns, moved to the model's device and passed to
+    loss_fn; returns (optimizer, final loss)."""
+    from ..util.log import get_logger
+
+    log = get_logger("train")
+    dev = next(model.parameters()).device
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    loss = torch.tensor(float("nan"))
+    for i in range(steps):
+        args = [torch.from_numpy(a).to(dev) for a in batch_fn()]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(*args)
+        loss.backward()
+        opt.step()
+        loss = loss.detach()
+        if log_every and (i + 1) % log_every == 0:
+            log.info("%s step %d/%d loss=%.5f", name, i + 1, steps,
+                     float(loss))
+    return opt, float(loss)
+
+
+def detection_loss(logits, deltas, cls_t, box_t):
+    """The SSD loss: softmax cross entropy over valid anchors with the
+    rare positives weighted 10x, plus the Huber (delta 1) box loss over
+    positives, each normalised by its weight."""
+    valid = cls_t >= 0
+    pos = cls_t == 1
+    ce = F.cross_entropy(logits.transpose(1, 2), cls_t.clamp_min(0).long(),
+                         reduction="none")
+    w = torch.where(pos, 10.0, 1.0) * valid
+    cls_loss = (ce * w).sum() / w.sum().clamp_min(1.0)
+    hub = F.huber_loss(deltas, box_t, reduction="none", delta=1.0).sum(-1)
+    box_loss = (hub * pos).sum() / pos.sum().clamp_min(1.0)
+    return cls_loss + box_loss
+
+
+def _initial_detector(seed: int, width: int, device: Any) -> nn.Module:
+    """The model train_detector starts from (tests put the JAX package's
+    initial parameters in its place)."""
+    from ..engine.evaluate import resolve_device
+    from .detection import SSDDetector
+    from .nets import init_module_
+    return init_module_(SSDDetector(num_classes=2, width=width),
+                        seed).to(resolve_device(device))
+
+
+def train_detector(checkpoint_dir: str, renderer: Callable = None,
+                   steps: int = 300, batch: int = 4, size: int = SIZE,
+                   width: int = WIDTH, seed: int = 0,
+                   export_npz: Optional[str] = None,
+                   log_every: int = 50, *, device: Any = "cuda") -> float:
+    """Train SSDDetector on the synthetic scene task on `device` (the
+    card unless the caller asks for the CPU); saves a checkpoint, and the
+    `.npz` weight file when `export_npz` is given.  Returns the final
+    loss."""
+    from .checkpoint import TrainCheckpointer, export_params_npz
+    from .detection import make_anchors
+
+    renderer = renderer or render_rect_scene
+    anchors = make_anchors(-(-size // 16), -(-size // 16))
+    model = _initial_detector(seed, width, device)
+    rng = np.random.RandomState(seed)
+    opt, loss = adam_loop(
+        model, lambda f, c, b: detection_loss(*model(f), c, b),
+        lambda: detection_batch(rng, batch, anchors, renderer, size),
+        steps, log_every, "detect_train")
+    TrainCheckpointer(checkpoint_dir).save(steps, model, opt)
+    if export_npz:
+        export_params_npz(model, export_npz)
+    return loss
+
+
+class EmbeddingTraining(EmbeddingNet):
+    """EmbeddingNet with the training-only identity classifier `w_cls`
+    (dim, identities) on its normalised output.  The classifier has no
+    flax counterpart (FLAX_PARAMS None): the `.npz` export leaves it out,
+    and a FaceEmbedding restoring the checkpoint does not load it."""
+
+    FLAX_PARAMS = {"w_cls": None}
+
+    def __init__(self, dim: int, width: int, identities: int,
+                 dtype=torch.bfloat16):
+        super().__init__(dim=dim, width=width, dtype=dtype)
+        self.w_cls = nn.Parameter(torch.zeros(dim, identities))
+
+
+def _initial_embedding(seed: int, dim: int, width: int, identities: int,
+                       device: Any) -> EmbeddingTraining:
+    """The model train_embedding starts from: random weights from `seed`,
+    and the classifier normal x 0.05 from a generator seeded by `seed`."""
+    from ..engine.evaluate import resolve_device
+    from .nets import init_module_
+    model = init_module_(EmbeddingTraining(dim, width, identities), seed)
+    with torch.no_grad():
+        model.w_cls.normal_(0.0, 0.05,
+                            generator=torch.Generator().manual_seed(seed))
+    return model.to(resolve_device(device))
+
+
+def train_embedding(checkpoint_dir: str, steps: int = 300, batch: int = 16,
+                    size: int = SIZE, width: int = WIDTH,
+                    dim: int = EMBED_DIM,
+                    identities: int = EMBED_IDENTITIES, seed: int = 0,
+                    export_npz: Optional[str] = None,
+                    log_every: int = 50, *, device: Any = "cuda") -> float:
+    """Train EmbeddingNet by identity classification over procedural
+    textures on `device`; the exported weights are the backbone and
+    projection.  Returns the final loss."""
+    from .checkpoint import TrainCheckpointer, export_params_npz
+
+    model = _initial_embedding(seed, dim, width, identities, device)
+    rng = np.random.RandomState(seed)
+
+    def batch_fn():
+        labels = rng.randint(0, identities, batch)
+        frames = np.stack([render_identity(lab, rng, size)
+                           for lab in labels])
+        return frames, labels
+
+    def loss_fn(frames, labels):
+        logits = model(frames) @ model.w_cls * 10.0       # temperature
+        return F.cross_entropy(logits, labels.long())
+
+    opt, loss = adam_loop(model, loss_fn, batch_fn, steps, log_every,
+                          "embed_train")
+    TrainCheckpointer(checkpoint_dir).save(steps, model, opt)
+    if export_npz:
+        export_params_npz(model, export_npz)
+    return loss
+
+
+def main(argv: Optional[list] = None) -> None:
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("out_dir")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--which", default="all",
+                    choices=["all", "detect", "face", "embed"])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cpu", action="store_const", const="cpu",
+                    dest="device", help="the same as --device cpu")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out_dir, exist_ok=True)
+    if args.which in ("all", "detect"):
+        loss = train_detector(
+            os.path.join(args.out_dir, "detect_ckpt"),
+            render_rect_scene, steps=args.steps, seed=0,
+            export_npz=os.path.join(args.out_dir,
+                                    f"detect_ssd_w{WIDTH}.npz"),
+            device=args.device)
+        print(f"detect: final loss {loss:.5f}")
+    if args.which in ("all", "face"):
+        loss = train_detector(
+            os.path.join(args.out_dir, "face_ckpt"),
+            render_face_scene, steps=args.steps, seed=1,
+            export_npz=os.path.join(args.out_dir,
+                                    f"face_ssd_w{WIDTH}.npz"),
+            device=args.device)
+        print(f"face: final loss {loss:.5f}")
+    if args.which in ("all", "embed"):
+        loss = train_embedding(
+            os.path.join(args.out_dir, "embed_ckpt"), steps=args.steps,
+            seed=2,
+            export_npz=os.path.join(args.out_dir, f"embed_w{WIDTH}.npz"),
+            device=args.device)
+        print(f"embed: final loss {loss:.5f}")
+
+
+if __name__ == "__main__":
+    main()

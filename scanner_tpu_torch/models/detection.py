@@ -200,7 +200,7 @@ class ObjectDetect(Kernel):
         net = SSDDetector(num_classes=num_classes, width=width)
         shipped = self._shipped if (pretrained and num_classes == 2 and
                                     width == self._shipped_width) else None
-        load_weights(net, shipped, checkpoint_dir, seed, type(self).__name__)
+        load_weights(net, shipped, checkpoint_dir, seed)
         self._dp = DataParallelApply(AnchoredModel(net, score_thresh),
                                      config.devices)
 

@@ -77,7 +77,7 @@ class FaceEmbedding(Kernel):
         net = EmbeddingNet(dim=dim, width=width)
         shipped = self._shipped if (pretrained and dim == 128 and
                                     width == self._shipped_width) else None
-        load_weights(net, shipped, checkpoint_dir, seed, "FaceEmbedding")
+        load_weights(net, shipped, checkpoint_dir, seed)
         self._dp = DataParallelApply(net, config.devices)
 
     def infer_cost_flops(self, batch):

@@ -19,8 +19,9 @@ unchanged after models/convert.py:
 
 Submodules carry flax's auto names (Conv_0, GroupNorm_1, ResBlock_3, ...)
 so a parameter's torch name maps to its flax key path.  Each module's
-FLAX_PARAMS says which flax leaf a torch parameter comes from and how
-its layout changes (models/convert.py reads it).
+FLAX_PARAMS says which flax leaf a torch parameter comes from, how its
+layout changes on the way in and how it changes back on the way out
+(models/convert.py reads it both ways).
 
 Layout: Backbone, DeconvHead and VideoPoseNet take and return NHWC, as
 the JAX package does; inside, convolutions run on NCHW views of the
@@ -45,11 +46,20 @@ def _hwio_to_oihw(a):
     return a.transpose(3, 2, 0, 1)
 
 
+def _oihw_to_hwio(a):
+    return a.transpose(2, 3, 1, 0)
+
+
 def _transpose_conv_kernel(a):
     """flax ConvTranspose kernel (kh, kw, in, out), applied without a
     flip, -> torch conv_transpose2d weight (in, out, kh, kw), which torch
     applies flipped."""
     return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+
+
+def _flax_transpose_conv_kernel(a):
+    """The inverse of _transpose_conv_kernel."""
+    return a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
 
 
 def _dense_kernel(a):
@@ -73,7 +83,7 @@ class Conv(nn.Module):
     """flax nn.Conv(cout, (k, k), strides=(s, s), padding="SAME") on
     NCHW tensors."""
 
-    FLAX_PARAMS = {"weight": ("kernel", _hwio_to_oihw)}
+    FLAX_PARAMS = {"weight": ("kernel", _hwio_to_oihw, _oihw_to_hwio)}
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  dtype=torch.bfloat16):
@@ -102,7 +112,8 @@ class ConvTranspose(nn.Module):
     """flax nn.ConvTranspose(cout, (k, k), strides=(s, s)) (padding
     "SAME", transpose_kernel=False) on NCHW tensors: output size s * n."""
 
-    FLAX_PARAMS = {"weight": ("kernel", _transpose_conv_kernel)}
+    FLAX_PARAMS = {"weight": ("kernel", _transpose_conv_kernel,
+                              _flax_transpose_conv_kernel)}
 
     def __init__(self, cin: int, cout: int, k: int = 4, stride: int = 2,
                  dtype=torch.bfloat16):
@@ -132,7 +143,7 @@ class ConvTranspose(nn.Module):
 class Dense(nn.Module):
     """flax nn.Dense over the last axis."""
 
-    FLAX_PARAMS = {"weight": ("kernel", _dense_kernel)}
+    FLAX_PARAMS = {"weight": ("kernel", _dense_kernel, _dense_kernel)}
 
     def __init__(self, cin: int, cout: int, dtype=torch.bfloat16):
         super().__init__()
@@ -158,7 +169,7 @@ def _normalize(x, mean, var, scale, bias, dtype):
 class GroupNorm(nn.Module):
     """flax nn.GroupNorm(num_groups) on NCHW tensors."""
 
-    FLAX_PARAMS = {"weight": ("scale", None)}
+    FLAX_PARAMS = {"weight": ("scale", None, None)}
 
     def __init__(self, ch: int, groups: int = 8, dtype=torch.bfloat16):
         super().__init__()
@@ -185,7 +196,7 @@ class GroupNorm(nn.Module):
 class LayerNorm(nn.Module):
     """flax nn.LayerNorm over the last axis."""
 
-    FLAX_PARAMS = {"weight": ("scale", None)}
+    FLAX_PARAMS = {"weight": ("scale", None, None)}
 
     def __init__(self, ch: int, dtype=torch.bfloat16):
         super().__init__()

@@ -4,8 +4,7 @@ The counterpart of the JAX package's models/pose.py: per-frame conv
 backbone -> temporal attention over the clip (ring attention through
 `attn_fn`) -> MoE mixer -> FiLM -> deconv heatmap head, its Adam train
 step, and the engine op `PoseDetect`.  Ported on one card: the sharded
-dp/sp/tp train step, pipeline parallelism, remat and orbax checkpoints
-are not ported yet.
+dp/sp/tp train step, pipeline parallelism and remat are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from torch import nn
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
 from .convert import load_weights
+from .infer import lowered_flops
 from .nets import Backbone, DeconvHead, Dense, TemporalBlock, init_module_
 
 NUM_KEYPOINTS = 17
@@ -114,8 +114,9 @@ class PoseDetect(Kernel):
     """Per-frame pose keypoints (reference pose_detection app op), on the
     device the engine gives this kernel (the client's card, or the CPU).
 
-    With `checkpoint_dir=` an exported `.npz` weight file is loaded; with
-    none, width 8 loads the shipped weights (pretrained=True) and other
+    With `checkpoint_dir=` an exported `.npz` weight file or a
+    checkpoint directory of models/checkpoint.py (train_pose writes one)
+    is loaded; with none, width 8 loads the shipped weights (pretrained=True) and other
     widths start from random weights made from `seed`."""
 
     _shipped = "pose_blobnet_w8.npz"
@@ -130,8 +131,16 @@ class PoseDetect(Kernel):
         self.model = VideoPoseNet(width=width)
         shipped = self._shipped if (pretrained and
                                     width == self._shipped_width) else None
-        load_weights(self.model, shipped, checkpoint_dir, seed, "PoseDetect")
+        load_weights(self.model, shipped, checkpoint_dir, seed)
         self.model.to(self.device).eval()
+
+    def infer_cost_flops(self, batch):
+        """FLOPs of one inference call on `batch` (the MFU probe,
+        infer.lowered_flops); None when none are counted."""
+        if not isinstance(batch, (np.ndarray, torch.Tensor)):
+            batch = np.stack(batch)
+        x = torch.as_tensor(batch).to(self.device)
+        return lowered_flops(apply_and_peaks, self.model, x[:, None])
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """(B, K, 3) [x, y, score] per batch: a tensor left on the card

@@ -208,7 +208,7 @@ class InstanceSegment(Kernel):
         net = InstanceSegmentor(num_classes=num_classes, width=width)
         shipped = self._shipped if (pretrained and num_classes == 2 and
                                     width == self._shipped_width) else None
-        load_weights(net, shipped, checkpoint_dir, seed, "InstanceSegment")
+        load_weights(net, shipped, checkpoint_dir, seed)
         self._dp = DataParallelApply(SegmentRows(net, score_thresh),
                                      config.devices)
 

@@ -394,6 +394,14 @@ def _record_compiles(ctx: _CompileCtx) -> None:
                        cache=cache)
 
 
+def set_ring_size(n: int) -> None:
+    """Re-bound the ledger ring (tests; a process sizes it through
+    SCANNER_TPU_COMPILE_LEDGER at start).  Keeps the newest entries."""
+    global _ledger
+    with _ledger_lock:
+        _ledger = deque(_ledger, maxlen=max(1, int(n)))
+
+
 def compile_ledger(n: Optional[int] = None) -> List[Dict[str, Any]]:
     """Ledger entries, oldest first (the newest `n` when given)."""
     with _ledger_lock:
@@ -530,6 +538,16 @@ def op_efficiency() -> List[Dict[str, Any]]:
             "cost_source": src,
         })
     return out
+
+
+def clear() -> None:
+    """Drop the compile ledger and the per-op efficiency state (tests)."""
+    global _ledger_seq
+    with _ledger_lock:
+        _ledger.clear()
+        _ledger_seq = 0
+    with _op_lock:
+        _op_stats.clear()
 
 
 def status_dict() -> Dict[str, Any]:

@@ -110,6 +110,10 @@ SITES = (
                           # death mid-collective (the runner dies with
                           # its worker via PR_SET_PDEATHSIG), raise =
                           # collective failure reported transient
+    "gang.teardown",      # engine/gang.py run_member, in the member
+                          # child after it published its result and
+                          # before it leaves the group: delay = a
+                          # member that outlives its gang's commit
 )
 
 MODES = ("raise", "delay", "corrupt", "crash", "duplicate")

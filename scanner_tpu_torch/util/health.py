@@ -885,6 +885,10 @@ def add_listener(fn: Callable[[dict], None]) -> None:
     engine().add_listener(fn)
 
 
+def set_interval(seconds: float) -> None:
+    engine().set_interval(seconds)
+
+
 def set_tracer(tracer: Any) -> None:
     engine().set_tracer(tracer)
 

@@ -326,6 +326,13 @@ def watermark_bytes(device: Optional[str] = None,
                    and (kind is None or k == kind))
 
 
+def entries() -> List[Dict[str, Any]]:
+    """Live ledger entries as plain dicts (the tests' leak guard)."""
+    _flush_release_counts()
+    with _lock:
+        return [e.to_dict() for e in _entries.values()]
+
+
 def top_entries(n: Optional[int] = None) -> List[Dict[str, Any]]:
     """The N largest live entries by bytes — the "who owns the device
     memory" answer a report leads with."""

@@ -231,3 +231,44 @@ def test_library_load_is_a_compile(monkeypatch, tmp_path):
     n = tcs.ledger_summary()["entries_seen"]
     cuda_ops.load_library()
     assert tcs.ledger_summary()["entries_seen"] == n
+
+
+
+def _fill_ledger(pkg, n):
+    """n compile entries (signatures sig0..) and one timed call."""
+    for i in range(n):
+        ctx = pkg._CompileCtx("RingOp", "unit:rr", 4, f"sig{i}")
+        ctx.compiles.append((0.25, "uncached", "library", 0)
+                            if pkg is tcs else (0.25, "uncached"))
+        pkg._record_compiles(ctx)
+    pkg.record_op_call("RingOp", "unit:rr", 4, 4, 0.001,
+                       pkg.CostDescriptor(flops=1e6, bytes_in=1e6))
+
+
+@pytest.mark.parametrize("ring", [1, 3, 8])
+def test_set_ring_size_and_clear_match_jax(ring):
+    """set_ring_size keeps the newest entries of the compile ledger and
+    clear drops the ledger, its sequence and the per-op efficiency
+    table, in both packages alike."""
+    try:
+        for pkg in (jcs, tcs):
+            pkg.clear()
+            pkg.set_ring_size(ring)
+            _fill_ledger(pkg, 5)
+        want, got = jcs.compile_ledger(), tcs.compile_ledger()
+        assert [e["signature"] for e in got] == \
+            [e["signature"] for e in want] == \
+            [f"sig{i}" for i in range(5)][-ring:]
+        assert tcs.ledger_summary()["entries_seen"] == \
+            jcs.ledger_summary()["entries_seen"] == 5
+        assert len(tcs.op_efficiency()) == len(jcs.op_efficiency()) == 1
+        for pkg in (jcs, tcs):
+            pkg.clear()
+        assert tcs.compile_ledger() == jcs.compile_ledger() == []
+        assert tcs.ledger_summary()["entries_seen"] == \
+            jcs.ledger_summary()["entries_seen"] == 0
+        assert tcs.op_efficiency() == jcs.op_efficiency() == []
+    finally:
+        for pkg in (jcs, tcs):
+            pkg.set_ring_size(pkg._env_ring_size())
+            pkg.clear()

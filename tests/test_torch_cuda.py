@@ -8,7 +8,10 @@ the bounds of chip_smoke.py's [model_serve] (boxes within IoU 0.9 on 95 %
 of frames, cosine >= 0.99, mask IoU >= 0.9 on matched instances).  And
 a cluster job through a Worker(device="cuda:0") against a CPU worker's
 rows, and a two-member gang on the one card against a local run, byte
-for byte.  Marked `cuda`: they need an NVIDIA card with nvcc
+for byte.  And the train path on the card: train_pose through the flash
+kernel (two launches a step), its checkpoint restored by PoseDetect and a
+trained detector's `.npz` by ObjectDetect, each giving the in-memory
+model's outputs.  Marked `cuda`: they need an NVIDIA card with nvcc
 (sm_90a) and skip elsewhere — except the check that a worker asked for
 a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
@@ -369,6 +372,47 @@ def test_model_ops_on_card_match_cpu(card, op):
     else:
         assert boxes_agree(want, got, segmentation.unpack_instances) >= 0.95
         assert np.mean(matched_mask_ious(want, got)) >= 0.9
+
+
+def test_train_save_and_serve_on_card(card, tmp_path):
+    """train_pose with the one-rank "cuda" ring launches the flash kernel
+    once per temporal block and step; PoseDetect restores its checkpoint
+    and ObjectDetect a trained detector's `.npz`, and both give the
+    in-memory model's outputs on the card."""
+    import numpy as np
+    from scanner_tpu_torch.common import DeviceType
+    from scanner_tpu_torch.graph.ops import KernelConfig
+    from scanner_tpu_torch.kernels import attention
+    from scanner_tpu_torch.models import (checkpoint, detect_train,
+                                          detection, pose, pose_train)
+    from scanner_tpu_torch.parallel import make_ring_attention
+    ckpt = str(tmp_path / "pose")
+    attention.reset_counts()
+    loss = pose_train.train_pose(ckpt, steps=4, batch=2, log_every=0,
+                                 attn_fn=make_ring_attention(impl="cuda"),
+                                 device=card)
+    assert np.isfinite(loss) and attention.flash_launches == 2 * 4
+    clips, _, _ = pose_train.synth_batch(np.random.RandomState(5), 2, 8)
+    frames = torch.from_numpy(clips.reshape(16, 48, 48, 3)).to(card)
+    config = KernelConfig(device=DeviceType.TPU, devices=[card])
+    model = checkpoint.load_params(ckpt, pose.VideoPoseNet(width=8))
+    with torch.no_grad():
+        want = pose.apply_and_peaks(model.to(card).eval(), frames[:, None])
+    got = pose.PoseDetect(config, width=8, checkpoint_dir=ckpt) \
+        .execute(frames)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    npz = str(tmp_path / "detect.npz")
+    detect_train.train_detector(str(tmp_path / "det"), steps=4, batch=2,
+                                export_npz=npz, log_every=0, device=card)
+    scenes = torch.from_numpy(np.stack([detect_train.render_rect_scene(
+        np.random.RandomState(i))[0] for i in range(8)])).to(card)
+    net = checkpoint.load_params(str(tmp_path / "det"),
+                                 detection.SSDDetector(width=8))
+    with torch.no_grad():
+        want = detection.AnchoredModel(net, 0.05).to(card).eval()(scenes)
+    got = detection.ObjectDetect(config, width=8, checkpoint_dir=npz) \
+        .execute(scenes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _queue_c_frames(case):

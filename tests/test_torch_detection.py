@@ -228,7 +228,7 @@ def test_shipped_weights_localize_through_client(tmp_path, op, seed):
 
 def test_model_ops_refuse_several_devices():
     from scanner_tpu_torch.models.infer import DataParallelApply
-    with pytest.raises(NotImplementedError, match="Queue A.8"):
+    with pytest.raises(NotImplementedError, match="Queue A.7b"):
         DataParallelApply(torch.nn.Identity(), ["cpu", "cpu"])
     dp = DataParallelApply(torch.nn.Identity(), [])
     with pytest.raises(ValueError, match="model on cpu"):

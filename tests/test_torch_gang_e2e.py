@@ -184,6 +184,51 @@ def test_replicated_rows_equal_jax(gang_cluster):
     assert d["scanner_tpu_gang_shard_rows_total"] == 0
 
 
+def test_slow_member_teardown_keeps_its_result(gang_cluster, monkeypatch):
+    """Member 1 outlives its gang's commit: its runner sleeps after it
+    wrote its result (a child-side gang.teardown delay), member 0
+    commits, and the master retires the gang from the liveness list
+    that the heartbeat carries while the bulk's second task waits.  The
+    finished member is not reaped as aborted: all four member runs
+    report ok, nothing is aborted or struck, and the slow runners exit
+    on their own."""
+    results = []
+    spawn = tgang.spawn_member
+
+    def recording(request, **kw):
+        res = spawn(request, **kw)
+        results.append((request["process_id"], res.get("ok"),
+                        res.get("stage"), time.time(),
+                        res["phases"]["teardown"]))
+        return res
+
+    monkeypatch.setattr(tgang, "spawn_member", recording)
+    monkeypatch.setenv("SCANNER_TPU_GANG_CHILD_FAULTS",
+                       "gang.teardown:delay:seconds=4:match=m1")
+    sc = gang_cluster["client"]
+    tgang.set_sharded(False)
+    series = ("scanner_tpu_gang_aborted_total",
+              "scanner_tpu_blacklist_strikes_total")
+    before = {k: _counter(k) for k in series}
+    sc.run(_graph(sc, st, "double", "slow_teardown"),
+           st.PerfParams.manual(1, 5, gang_hosts=2), show_progress=False,
+           cache_mode=st.CacheMode.Overwrite)
+    committed = time.time()
+    deadline = committed + 30
+    while len(results) < 4 and time.time() < deadline:
+        time.sleep(0.05)
+    assert _stored(sc._db, "slow_teardown") == gang_cluster["want"]["double"]
+    assert sorted(r[:3] for r in results) \
+        == [(0, True, None)] * 2 + [(1, True, None)] * 2, results
+    # member 1 was still tearing down when the job finished, and each
+    # of its runs took the delay between its result and its exit
+    assert max(r[3] for r in results if r[0] == 1) > committed
+    assert min(r[4] for r in results if r[0] == 1) >= 4.0
+    assert {k: _counter(k) - before[k] for k in series} \
+        == {k: 0 for k in series}
+    assert _member_children() == []
+
+
 def test_halo_exchange_config2_rows_equal_jax(gang_cluster):
     """Histogram -> HistogramDelta needs the frame before each shard:
     member 1 receives it from member 0 over the halo exchange instead

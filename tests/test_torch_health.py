@@ -230,3 +230,18 @@ def test_listener_sees_transitions_and_user_rules_resolve_on_removal():
     assert eng.status_dict()["status"] == "degraded"
     eng.set_user_rules([])
     assert eng.status_dict()["status"] == "ok"
+
+
+@pytest.mark.parametrize("seconds", [0.01, 0.05, 0.3, 2])
+def test_module_set_interval_matches_jax(seconds):
+    """The module-level set_interval reaches the process engine and
+    clamps as the JAX package's does (no engine thread is started)."""
+    engines = (jh.engine(), th.engine())
+    before = [e._interval for e in engines]
+    try:
+        jh.set_interval(seconds)
+        th.set_interval(seconds)
+        assert th.engine()._interval == jh.engine()._interval
+    finally:
+        for e, v in zip(engines, before):
+            e._interval = v

@@ -59,7 +59,7 @@ def test_no_jax_or_reference_imports(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                "scanner_tpu"), \
                 f"{path}:{node.lineno} imports {name}"
 
@@ -86,6 +86,7 @@ def test_import_with_jax_blocked():
             "import scanner_tpu_torch.models.pose_train; "
             "import scanner_tpu_torch.models.detect_train; "
             "import scanner_tpu_torch.models.seg_train; "
+            "import scanner_tpu_torch.models.checkpoint; "
             "import scanner_tpu_torch.models.infer; "
             "from scanner_tpu_torch.graph.ops import registry; "
             "print(','.join(sorted(registry.names())))")
@@ -180,15 +181,21 @@ def test_kernel_wrapper_refuses_other_devices():
         cuda_ops.histogram_frames(x)
 
 
-def test_pose_entry_points_raise_without_card(monkeypatch):
-    """init_params and train_pose default to the card and raise without
-    one; PoseDetect runs on the device the engine hands it."""
+def test_pose_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """init_params and the train loops default to the card and raise
+    without one, before they write a checkpoint; PoseDetect runs on the
+    device the engine hands it."""
     import scanner_tpu_torch as st
-    from scanner_tpu_torch.models import pose, pose_train
+    from scanner_tpu_torch.models import detect_train, pose, pose_train
+    from scanner_tpu_torch.models import seg_train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(st.ScannerException, match="no CUDA card"):
         pose.init_params(0, width=8)
-    with pytest.raises(st.ScannerException, match="no CUDA card"):
-        pose_train.train_pose(steps=1)
+    ckpt = str(tmp_path / "ckpt")
+    for train in (pose_train.train_pose, detect_train.train_detector,
+                  detect_train.train_embedding, seg_train.train_segmenter):
+        with pytest.raises(st.ScannerException, match="no CUDA card"):
+            train(ckpt, steps=1)
+    assert not os.path.exists(ckpt)
     m = pose.init_params(0, device="cpu", width=8)
     assert next(m.parameters()).device.type == "cpu"

@@ -19,7 +19,8 @@ from scanner_tpu_torch.engine.executor import LocalExecutor
 from scanner_tpu_torch.util import faults
 from scanner_tpu_torch.util import memstats as tms
 from scanner_tpu_torch.util.profiler import Profiler
-from torch_model_checks import stop_process_engine  # noqa: F401
+from torch_model_checks import (  # noqa: F401
+    ledger_leak_guard, stop_process_engine)
 
 
 def test_register_release_watermark():
@@ -120,3 +121,42 @@ def test_a_staged_run_tracks_staging_buffers(tmp_path):
     report = sc.memory_report()
     assert set(report) == {"memory", "reports"}
     assert any(r["kind"] == "staging" for r in report["memory"]["ledger"])
+
+
+def test_entries_match_jax():
+    """entries() lists each live registration with the JAX package's
+    keys and values, and drops it once released."""
+    dev, kind = "entries-test:0", "staging"
+    ids = {pkg: pkg.register(4096, dev, kind) for pkg in (jms, tms)}
+    try:
+        rows = {pkg: [e for e in pkg.entries() if e["id"] == ids[pkg]]
+                for pkg in (jms, tms)}
+        (want,), (got,) = rows[jms], rows[tms]
+        assert set(got) == set(want)
+        for key in ("bytes", "device", "kind"):
+            assert got[key] == want[key]
+    finally:
+        for pkg, eid in ids.items():
+            pkg.release(eid)
+    for pkg, eid in ids.items():
+        assert all(e["id"] != eid for e in pkg.entries())
+
+
+def test_staged_run_leaves_no_entry(tmp_path, ledger_leak_guard):
+    """A staged Histogram run on CPU tensors: every ledger entry the run
+    registered is released once its tensors are collected."""
+    f = np.random.RandomState(3).randint(0, 256, (12, 16, 16, 3)) \
+        .astype(np.uint8)
+    sc = st.Client(db_path=str(tmp_path / "db"), device="cpu")
+    try:
+        sc.new_table("frames", ["frame"], [[x] for x in f],
+                     codecs={"frame": "pickle"})
+        ex = LocalExecutor(sc._db, Profiler(), torch.device("cpu"),
+                           stage=True)
+        ex.run([sc.io.Output(sc.ops.Histogram(
+                    frame=sc.io.Input([st.NamedStream(sc, "frames")])),
+                    [st.NamedStream(sc, "hist")])],
+               st.PerfParams.manual(4, 8))
+        assert ledger_leak_guard.watermark_bytes("cpu", "staging") > 0
+    finally:
+        sc.stop()

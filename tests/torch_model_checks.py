@@ -1,7 +1,7 @@
 """Shared helpers of the port's tests (not a test module): seeded flax
 parameters, the bf16 comparison bound, a run of an op through a Client
-over a stored frame table, and the fixture that stops the process health
-engine.  The scoring of rows against ground truth or against another run
+over a stored frame table, the fixture that stops the process health
+engine, and the allocation ledger's leak guard.  The scoring of rows against ground truth or against another run
 lives in the port (models/detect_train.py, models/seg_train.py), where
 chip_smoke.py uses it too."""
 
@@ -24,6 +24,32 @@ def stop_process_engine():
     from scanner_tpu_torch.util import health
     if health._ENGINE is not None:
         health._ENGINE.stop()
+
+
+@pytest.fixture()
+def ledger_leak_guard():
+    """Opt-in leak guard on the port's allocation ledger
+    (util/memstats.py), as tests/conftest.py's is on the JAX package's:
+    fail if entries registered during the test are still live after it.
+    Release is finalizer-driven, so collect a few times before judging;
+    kind=cache entries are the frame cache's resident pages, not leaks."""
+    import gc
+
+    from scanner_tpu_torch.util import memstats
+
+    gc.collect()
+    before = {e["id"] for e in memstats.entries()}
+    yield memstats
+    leaked = []
+    for _ in range(4):
+        gc.collect()
+        leaked = [e for e in memstats.entries()
+                  if e["id"] not in before and e["kind"] != "cache"]
+        if not leaked:
+            break
+    assert not leaked, (
+        f"engine left {len(leaked)} registered device buffer(s) in the "
+        f"allocation ledger: {leaked[:5]}")
 
 
 def random_params(module, x, seed):
