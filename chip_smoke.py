@@ -202,6 +202,27 @@ Phases, each printed on its own line; any failure exits non-zero:
                   (calls cycle over 8 distinct batches, past the L2), on
                   flat frames, at B = 8 and 32, and with every kernel a
                   wrapper call runs (it must be one).
+ 13a. sharded    in-program sharding on a one-rank NCCL group on the card
+                  (formed in the phase, destroyed before it ends): (a) a
+                  (dp, sp, tp) = (1, 1, 1) DeviceMesh from make_mesh's
+                  layout, shard_batch and replicate_to_global of config
+                  1's stored rows, temporal_diff over them bit for bit
+                  against the plain row difference; (b) Ulysses on the
+                  one-rank sp group at (2, 2048, 4, 32) f32 against
+                  reference_attention (rtol 2e-4, atol 2e-5); (c)
+                  make_pipeline at pp 1, M 2 against its stage, and a
+                  one-stage pipelined VideoPoseNet against the plain
+                  layout after pp_params_to_plain (within 1e-2 of the
+                  output's scale, bf16); (d) make_sharded_train_step at
+                  the JAX package's defaults (clip (8, 8, 64, 64, 3),
+                  width 32), six steps without and with remat under
+                  deterministic cuDNN: steps/s, step ms, peak bytes
+                  (and the part above what was allocated at the reset),
+                  the bytes one forward holds for its backward, and
+                  losses of each; the losses equal, falling, the first
+                  within rel 1e-3 of the unsharded make_train_step's;
+                  (e) a DCP save of (d)'s sharded state and a restore
+                  into a fresh step: the next loss bit for bit;
  14. framecache   the process frame cache on the card at 256 MB over the
                   600 frames in the YUV420 wire (460,800 B each): a
                   stencil pass, two dense passes of 96-frame tasks and a
@@ -2631,6 +2652,220 @@ def video_cache_ab(st, work: str, seed: int) -> str:
     return f"rows_identical({len(rows[True])})"
 
 
+# [sharded]: the sharded train step at the JAX package's defaults
+# (scanner_tpu/models/pose.py make_sharded_train_step), Ulysses at a
+# long clip's shape, and the pipeline at one stage
+SHARDED_CLIP = (8, 8, 64, 64, 3)
+SHARDED_WIDTH = 32
+SHARDED_STEPS = 6           # per run; the first is not timed
+ULYSSES_SHAPE = (2, 2048, 4, 32)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_run(pose, mesh, remat: bool) -> dict:
+    """SHARDED_STEPS steps of make_sharded_train_step on `mesh`: losses,
+    each step's seconds (host clock; the loss's read waits for the
+    card), peak bytes over the steps (max_memory_allocated after a reset)
+    and the bytes allocated at the reset (earlier phases' tensors, the
+    model, Adam's state and the batch), the bytes a forward pass holds
+    for its backward (one more forward, its graph kept, above what was
+    allocated before it), and what the step was built of."""
+    import torch
+    step, model, opt, (clip, target) = pose.make_sharded_train_step(
+        mesh, clip_shape=SHARDED_CLIP, width=SHARDED_WIDTH, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    losses, secs = [], []
+    for _ in range(SHARDED_STEPS):
+        t0 = time.time()
+        losses.append(float(step(clip, target)))
+        secs.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    before = torch.cuda.memory_allocated()
+    heat = model(clip.to_local())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del heat
+    return dict(losses=losses, secs=secs, peak=peak, start=start,
+                forward_held=held, built=(step, model, opt, clip, target))
+
+
+def sharded_phase(dev, seed: int, hist, work: str) -> dict:
+    """[sharded]: in-program sharding on a one-rank NCCL group on the
+    card, formed here and destroyed before the phase returns."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from scanner_tpu_torch.models import pose
+    from scanner_tpu_torch.models.checkpoint import TrainCheckpointer
+    from scanner_tpu_torch.models.convert import flax_params, load_params
+    from scanner_tpu_torch.parallel import (
+        device_mesh, make_mesh, make_pipeline, make_ulysses_attention,
+        reference_attention, replicate_to_global, shard_batch,
+        stack_stage_params, temporal_diff)
+
+    t_phase = time.time()
+    card = dev if dev.index is not None or dev.type != "cuda" \
+        else torch.device("cuda", torch.cuda.current_device())
+    check(not dist.is_initialized(),
+          "[sharded] a process group was already formed")
+    t0 = time.time()
+    # NCCL on the card (gloo only when a CPU rehearsal passes the CPU)
+    dist.init_process_group(
+        "nccl" if card.type == "cuda" else "gloo",
+        init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+        **({"device_id": card} if card.type == "cuda" else {}))
+    out = dict(backend=dist.get_backend(), ranks=dist.get_world_size(),
+               init_s=round(time.time() - t0, 3))
+    try:
+        # (a) placements and the halo over the main path's rows
+        mesh = device_mesh(make_mesh({"dp": 1, "sp": 1, "tp": 1},
+                                     devices=[card]))
+        rows = torch.from_numpy(hist)
+        b = shard_batch(mesh, hist)
+        r = replicate_to_global(mesh, (None, "tp"), hist)
+        check(b.to_local().device == card
+              and torch.equal(b.to_local().cpu(), rows)
+              and tuple(b.placements) == (Shard(0), Replicate(),
+                                          Replicate()),
+              "[sharded] shard_batch did not place the rows on dp")
+        check(torch.equal(r.to_local().cpu(), rows)
+              and tuple(r.placements) == (Replicate(), Replicate(),
+                                          Shard(1)),
+              "[sharded] replicate_to_global did not place (None, 'tp')")
+        diff = temporal_diff(mesh)(shard_batch(mesh, hist, "sp")) \
+            .to_local()
+        want = hist - np.concatenate([hist[:1], hist[:-1]])
+        check(diff.device == card
+              and np.array_equal(diff.cpu().numpy(), want),
+              "[sharded] temporal_diff differs from the plain row "
+              "difference")
+        out.update(mesh=json.dumps({"dp": 1, "sp": 1, "tp": 1}),
+                   diff_rows=f"{'x'.join(map(str, hist.shape))}"
+                             f":{hist.dtype}", diff_bit_exact=True)
+
+        # (b) Ulysses on the one-rank sp group
+        g = torch.Generator(device=card).manual_seed(seed)
+        q, k, v = (torch.randn(ULYSSES_SHAPE, generator=g, device=card)
+                   for _ in range(3))
+        uly = make_ulysses_attention(mesh, "sp")
+        got, ref = uly(q, k, v), reference_attention(q, k, v)
+        err = float((got - ref).abs().max())
+        check(bool(torch.allclose(got, ref, rtol=2e-4, atol=2e-5)),
+              f"[sharded] Ulysses differs from reference_attention by "
+              f"{err}")
+        out.update(ulysses_shape="x".join(map(str, ULYSSES_SHAPE)),
+                   ulysses_max_abs_err=err,
+                   ulysses_ms=cuda_ms(lambda: uly(q, k, v), 10),
+                   reference_attention_ms=cuda_ms(
+                       lambda: reference_attention(q, k, v), 10))
+
+        # (c) the pipeline at one stage, and a one-stage pipelined model
+        pp_mesh = device_mesh(make_mesh(
+            {"dp": 1, "sp": 1, "tp": 1, "pp": 1}, devices=[card]))
+        C = 32
+        sp_ = [{"w": torch.randn(C, C, generator=g, device=card) * 0.1,
+                "b": torch.randn(C, generator=g, device=card) * 0.1}]
+
+        def stage(p, x):
+            return torch.tanh(x @ p["w"] + p["b"])
+        x = torch.randn(8, 16, C, generator=g, device=card)
+        y = make_pipeline(pp_mesh, stage, num_microbatches=2)(
+            stack_stage_params(sp_), x)
+        pipe_err = float((y - stage(sp_[0], x)).abs().max())
+        check(pipe_err <= 1e-5, f"[sharded] make_pipeline at pp 1, M 2 "
+                                f"differs from its stage by {pipe_err}")
+        piped = pose.init_params(seed, device=card, width=SHARDED_WIDTH,
+                                 temporal_layers=1, pipeline_mesh=pp_mesh)
+        plain = pose.VideoPoseNet(width=SHARDED_WIDTH, temporal_layers=1)
+        load_params(plain, pose.pp_params_to_plain(flax_params(piped)))
+        plain.to(card)
+        clip = torch.randint(0, 256, (2,) + SHARDED_CLIP[1:], generator=g,
+                             device=card, dtype=torch.uint8)
+        with torch.no_grad():
+            a, bb = piped(clip), plain(clip)
+        model_err = float((a - bb).abs().max())
+        scale = float(bb.abs().max())
+        check(model_err <= 1e-2 * max(scale, 1.0),
+              f"[sharded] the one-stage pipelined VideoPoseNet differs "
+              f"from the plain layout by {model_err} (scale {scale})")
+        out.update(pipeline_max_abs_err=pipe_err,
+                   pipelined_model_max_abs_err=model_err,
+                   pipelined_model_bit_equal=bool(torch.equal(a, bb)))
+
+        # (d) the sharded step at the JAX package's defaults, (e) DCP
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {remat: sharded_run(pose, mesh, remat)
+                    for remat in (False, True)}
+            ref = pose.init_params(0, device=card, width=SHARDED_WIDTH)
+            _, ref_step = pose.make_train_step(ref)
+            step, model, opt, clip, target = runs[False]["built"]
+            first = float(ref_step(clip.to_local(), target.to_local()))
+            del ref, ref_step
+            ckpt = TrainCheckpointer(os.path.join(work, "sharded_ckpt"))
+            t0 = time.time()
+            ckpt.save(SHARDED_STEPS, model, opt)
+            save_s = time.time() - t0
+            uninterrupted = float(step(clip, target))
+            step, model, opt, (clip, target) = pose.make_sharded_train_step(
+                mesh, clip_shape=SHARDED_CLIP, width=SHARDED_WIDTH)
+            t0 = time.time()
+            at = ckpt.restore(model, opt)
+            restore_s = time.time() - t0
+            resumed = float(step(clip, target))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for remat, run in runs.items():
+            name = "remat" if remat else "no_remat"
+            losses = run["losses"]
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"[sharded] {name} losses do not fall: {losses}")
+            step_s = float(np.mean(run["secs"][1:]))
+            out.update({f"{name}_losses": json.dumps(losses),
+                        f"{name}_step_ms": step_s * 1e3,
+                        f"{name}_steps_per_s": 1.0 / step_s,
+                        f"{name}_step_s": json.dumps(
+                            [round(t, 4) for t in run["secs"]]),
+                        f"{name}_peak_bytes": run["peak"],
+                        f"{name}_bytes_at_reset": run["start"],
+                        f"{name}_step_peak_bytes": run["peak"]
+                        - run["start"],
+                        f"{name}_forward_held_bytes": run["forward_held"]})
+        check(runs[True]["losses"] == runs[False]["losses"],
+              f"[sharded] remat losses {runs[True]['losses']} differ from "
+              f"no-remat {runs[False]['losses']}")
+        rel = abs(runs[False]["losses"][0] - first) / abs(first)
+        check(rel <= 1e-3, f"[sharded] first sharded loss "
+                           f"{runs[False]['losses'][0]} differs from the "
+                           f"unsharded make_train_step's {first} by rel {rel}")
+        check(at == SHARDED_STEPS and resumed == uninterrupted,
+              f"[sharded] restored step {at}: next loss {resumed}, "
+              f"uninterrupted {uninterrupted}")
+        out.update(clip="x".join(map(str, SHARDED_CLIP)),
+                   width=SHARDED_WIDTH, steps=SHARDED_STEPS,
+                   remat_losses_equal=True, unsharded_first_loss=first,
+                   first_loss_rel_diff=rel,
+                   step_peak_ratio_remat=(runs[True]["peak"]
+                                          - runs[True]["start"])
+                   / (runs[False]["peak"] - runs[False]["start"]),
+                   resume_loss=resumed, uninterrupted_loss=uninterrupted,
+                   resume_bit_equal=True, save_s=round(save_s, 4),
+                   restore_s=round(restore_s, 4))
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = round(time.time() - t_phase, 3)
+    return out
+
+
 HIST_MAIN_FUNCTION = "hist_u8_privateILi3EE"
 
 
@@ -2883,6 +3118,7 @@ def main() -> int:
             check(a == b, f"config {cfg}: stored rows differ between "
                           f"device=cuda and device=cpu")
         hist = np.stack(list(st.NamedStream(cpu, "config1_cuda").load()))
+        config1_rows = hist     # [sharded] differences them on the card
         check(hist.shape == (args.frames, C, BINS)
               and hist.dtype == np.int32
               and bool((hist.sum(axis=2) == H * W).all()),
@@ -3021,6 +3257,11 @@ def main() -> int:
                   f"flash kernel ({f_ms:.4f} ms) is not faster than f32 "
                   f"scaled_dot_product_attention ({f_library_ms:.4f} ms) "
                   f"at {fb}x{ft}x{fd}")
+
+        # -- in-program sharding on a one-rank NCCL group ---------------
+        phase("sharded", **sharded_phase(dev, args.seed, config1_rows,
+                                         work),
+              card=repr(card))
 
         # -- the frame cache last: its closed loop fills the card ------
         phase("framecache", **framecache_phase(

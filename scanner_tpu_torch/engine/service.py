@@ -3386,7 +3386,7 @@ class Worker:
     `compilation_cache_dir` is accepted for the JAX package's signature
     and ignored: the kernel libraries are built once into
     scanner_tpu_torch/_build/.  `coordinator` (joining a process group
-    for the worker's lifetime) is ROADMAP A.7b and raises
+    for the worker's lifetime) is ROADMAP A.7b(b) and raises
     NotImplementedError; a gang bulk's members join a process group of
     their own per gang epoch (engine/gang.py).
     """
@@ -3409,7 +3409,7 @@ class Worker:
             raise NotImplementedError(
                 "Worker(coordinator=) joins a process group for the "
                 "worker's lifetime, which only in-program sharding "
-                "uses: ROADMAP A.7b (in-program dp/sp/tp)")
+                "uses across cards: ROADMAP A.7b(b)")
         # resolved before anything starts: a worker asked for a card
         # that is not there raises here, with no server bound
         self.device = resolve_device(device)

@@ -9,7 +9,11 @@ parameter `A.B.weight` of a module whose FLAX_PARAMS maps "weight" to
 `fn` changing its layout (HWIO -> OIHW for convolutions, a transpose for
 dense kernels, a flip for transposed convolutions: models/nets.py);
 `flax_params` goes the other way with `inv`, for the `.npz` files that
-models/checkpoint.py exports.
+models/checkpoint.py exports.  A stack of identical stages (a module
+with a `stage_template`, models/pose.py PipelinedTemporalStack) holds
+each template parameter stacked on a leading stage axis, under the flax
+key `<stack>/stages/params/<template key>`; its layout changes apply
+stage by stage.
 
 Only numpy reads the weight files; nothing of the JAX package is
 imported.
@@ -51,11 +55,30 @@ def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def _per_stage(fn):
+    return None if fn is None else (
+        lambda a: np.stack([fn(x) for x in a]))
+
+
 def _flax_entries(model: nn.Module):
     """(flax key, torch name, parameter, layout in, layout out) of each
     parameter of `model` that has a flax counterpart; a FLAX_PARAMS rule
     of None marks a training-only parameter (detect_train's classifier)."""
+    stack = None
     for mod_name, mod in model.named_modules():
+        if stack is not None and mod_name.startswith(stack):
+            continue
+        template = getattr(mod, "stage_template", None)
+        if template is not None:
+            stack = f"{mod_name}."
+            base = "/".join(["params"] + mod_name.split(".")
+                            + ["stages", "params"])
+            for path, name, _, fn, inv in _flax_entries(template):
+                full = f"{mod_name}.stages.{name}"
+                yield (base + path[len("params"):], full,
+                       model.get_parameter(full), _per_stage(fn),
+                       _per_stage(inv))
+            continue
         rules = getattr(mod, "FLAX_PARAMS", {})
         for pname, p in mod.named_parameters(recurse=False):
             rule = rules.get(pname, (pname, None, None))
@@ -80,10 +103,11 @@ def torch_state(params: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
         arr = flat[path]
         if fn is not None:
             arr = fn(arr)
-        if tuple(arr.shape) != tuple(p.shape):
+        shape = tuple(getattr(p, "global_shape", p.shape))
+        if tuple(arr.shape) != shape:
             raise ValueError(
                 f"{path}: weight shape {np.asarray(flat[path]).shape} "
-                f"does not give {tuple(p.shape)} (width mismatch?)")
+                f"does not give {shape} (width mismatch?)")
         state[name] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C"))
     return state
@@ -91,9 +115,14 @@ def torch_state(params: Any, model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of torch_state: `model`'s parameters under their flax
-    keys ("params/Backbone_0/Conv_0/kernel") in flax layouts, float32."""
+    keys ("params/Backbone_0/Conv_0/kernel") in flax layouts, float32.
+    A sharded parameter (parallel/distributed.py shard_params_) is
+    gathered whole: every rank of its mesh calls this together."""
+    from ..parallel.distributed import gather_full
     out = {}
     for path, _, p, _, inv in _flax_entries(model):
+        if hasattr(p, "sharding"):
+            p = gather_full(p.detach(), p.sharding)
         arr = p.detach().float().cpu().numpy()
         out[path] = np.ascontiguousarray(inv(arr) if inv is not None
                                          else arr)
@@ -102,10 +131,18 @@ def flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
 
 def load_params(model: nn.Module, params: Any) -> nn.Module:
     """Load JAX-package parameters (tree or flat dict) into `model`; a
-    training-only parameter (no flax counterpart) keeps its value."""
+    training-only parameter (no flax counterpart) keeps its value.  A
+    sharded parameter (parallel/distributed.py shard_params_) takes this
+    rank's block of the full value."""
     # torch_state raises on any flax-mapped parameter it cannot fill, so
     # the keys strict loading would miss are the training-only ones
-    model.load_state_dict(torch_state(params, model), strict=False)
+    from ..parallel.distributed import local_block
+    state = torch_state(params, model)
+    for name, value in state.items():
+        p = model.get_parameter(name)
+        if hasattr(p, "sharding"):
+            state[name] = local_block(p.sharding, value)
+    model.load_state_dict(state, strict=False)
     return model
 
 

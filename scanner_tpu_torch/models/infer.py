@@ -43,7 +43,7 @@ class DataParallelApply:
         if len(devices) > 1:
             raise NotImplementedError(
                 f"DataParallelApply over {len(devices)} devices is not "
-                f"ported (ROADMAP Queue A.7b); give each kernel one card")
+                f"ported (ROADMAP Queue A.7b(b)); give each kernel one card")
         self.device = torch.device(devices[0]) if devices \
             else torch.device("cpu")
         if self.device.type == "cuda" and self.device.index is None:

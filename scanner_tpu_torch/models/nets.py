@@ -26,6 +26,15 @@ layout changes on the way in and how it changes back on the way out
 Layout: Backbone, DeconvHead and VideoPoseNet take and return NHWC, as
 the JAX package does; inside, convolutions run on NCHW views of the
 same memory (channels_last), so the permutes copy nothing.
+
+Sharded parameters (models/pose.py make_sharded_train_step): a
+parameter may hold only this rank's block of a tensor split over a mesh
+axis (parallel/distributed.py shard_params_).  Dense, Conv and
+ConvTranspose with a weight split over its output channels compute their
+local channels and all-gather them on the channel dim; MoEMlp with its
+experts split computes its local experts and sums the routed outputs
+over the expert axis (the all-reduce GSPMD inserts in the JAX package).
+A split over one rank adds no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce, gather_sharded, shard_group
 from ..parallel.ring_attention import reference_attention
 
 NORM_EPS = 1e-6  # flax GroupNorm / LayerNorm default
@@ -105,6 +115,7 @@ class Conv(nn.Module):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = (0, 0)
         y = F.conv2d(x, self.weight.to(self.dtype), None, self.stride, pad)
+        y = gather_sharded(y, self.weight, 1)
         return y + self.bias.to(self.dtype)[:, None, None]
 
 
@@ -137,6 +148,7 @@ class ConvTranspose(nn.Module):
     def forward(self, x):
         y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
                                None, self.stride, self.padding)
+        y = gather_sharded(y, self.weight, 1)
         return y + self.bias.to(self.dtype)[:, None, None]
 
 
@@ -155,8 +167,8 @@ class Dense(nn.Module):
         _lecun_(self.weight, self.weight.shape[1], gen)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) \
-            + self.bias.to(self.dtype)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return gather_sharded(y, self.weight, -1) + self.bias.to(self.dtype)
 
 
 def _normalize(x, mean, var, scale, bias, dtype):
@@ -283,10 +295,15 @@ class MoEMlp(nn.Module):
         gate = self.router(x)
         probs = torch.softmax(gate.float(), dim=-1)
         sel = F.one_hot(probs.argmax(dim=-1), self.num_experts).to(x.dtype)
+        split = shard_group(self.w1)
+        if split is not None:   # this rank's experts only
+            e = self.w1.shape[0]
+            sel = sel[..., split[1] * e:(split[1] + 1) * e]
         h = torch.einsum("btc,ech->bteh", x, self.w1.to(self.dtype))
         h = F.relu(h)
         y = torch.einsum("bteh,ehc->btec", h, self.w2.to(self.dtype))
-        return torch.einsum("btec,bte->btc", y, sel)
+        out = torch.einsum("btec,bte->btc", y, sel)
+        return out if split is None else all_reduce(out, split[0])
 
 
 class TemporalBlock(nn.Module):

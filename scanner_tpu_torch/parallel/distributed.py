@@ -239,3 +239,92 @@ def all_gather_rows(mesh, axis: str, local_block,
         dist.all_gather(parts, block.contiguous(), group=group)
     out = np.concatenate([p.numpy() for p in parts], axis=0)
     return out[:global_rows] if global_rows is not None else out
+
+
+def local_block(sh, full_data):
+    """This rank's block of `full_data` (an array or tensor, the same on
+    every rank) under the placements of `sh` (a mesh.Sharding), copied
+    onto the mesh's device.  A dim split over several mesh dimensions
+    takes them in mesh order, as DTensor does; the split must be even."""
+    import torch
+
+    from .mesh import mesh_device
+
+    mesh = sh.mesh
+    full = torch.as_tensor(full_data)
+    coord = mesh.get_coordinate()
+    index = [slice(None)] * full.dim()
+    for d in range(full.dim()):
+        block, parts = 0, 1
+        for i, p in enumerate(sh.placements):
+            if p.is_shard() and p.dim == d:
+                block = block * mesh.size(i) + coord[i]
+                parts *= mesh.size(i)
+        if full.shape[d] % parts:
+            raise ValueError(f"dim {d} of size {full.shape[d]} does not "
+                             f"split evenly into {parts} shards")
+        k = full.shape[d] // parts
+        index[d] = slice(block * k, (block + 1) * k)
+    return full[tuple(index)].to(mesh_device(mesh), copy=True).contiguous()
+
+
+def place(sh, full_data):
+    """`full_data` (the same on every rank) as a DTensor with the
+    placements of `sh`, built from this rank's own block: no bytes move
+    between ranks."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(torch.as_tensor(full_data).shape)
+    return DTensor.from_local(
+        local_block(sh, full_data), sh.mesh, sh.placements,
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def replicate_to_global(mesh, spec, full_data):
+    """Place an identical host array (present on every rank) as a global
+    sharded DTensor with the placements of `spec` (mesh.sharding's
+    spec) — convenient for params/targets in tests and small inputs.
+    Every rank must pass the same `full_data`; each keeps only its own
+    block, so no bytes move."""
+    from .mesh import sharding
+
+    spec = (spec,) if isinstance(spec, str) else tuple(spec)
+    return place(sharding(mesh, *spec), full_data)
+
+
+def shard_params_(model, shardings) -> None:
+    """Replace each parameter of `model` (the same full values on every
+    rank) by this rank's block of it under shardings[name] (a
+    mesh.Sharding; every parameter needs one), on the mesh's device.
+    Each new parameter is a plain tensor carrying `sharding` and
+    `global_shape`: the layers compute on it directly
+    (parallel/collectives.py shard_group), so no DTensor dispatch runs
+    in a step; models/checkpoint.py saves it as a DTensor."""
+    import torch
+
+    names = [n for n, _ in model.named_parameters()]
+    missing = sorted(set(names) - set(shardings))
+    if missing:
+        raise ValueError(f"no sharding for parameters {missing}")
+    for name in names:
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        full = getattr(mod, leaf).detach()
+        p = torch.nn.Parameter(local_block(shardings[name], full))
+        p.sharding, p.global_shape = shardings[name], tuple(full.shape)
+        mod.register_parameter(leaf, p)
+
+
+def gather_full(t, sh):
+    """The full tensor of which `t` is this rank's block under the
+    mesh.Sharding `sh`: all-gathers over each mesh dim that splits it,
+    the innermost first.  Every rank of the mesh calls this together."""
+    from .collectives import all_gather
+
+    for i in reversed(range(len(sh.placements))):
+        p = sh.placements[i]
+        if p.is_shard() and sh.mesh.size(i) > 1:
+            t = all_gather(t, p.dim, sh.mesh.get_group(i))
+    return t

@@ -8,13 +8,14 @@ members), the same boundary rows move as a **halo exchange between
 neighbor shards**: a pair of point-to-point shifts over the gang's
 process group (`dist.batch_isend_irecv`, the pattern
 parallel/ring_attention.py uses), edge shards repeating their own edge
-rows.  `sharded_stencil_map` and `temporal_diff` (in-program sequence
-sharding over device tensors) are ROADMAP A.7b.
+rows.  `sharded_stencil_map` and `temporal_diff` do the same over device
+tensors: a DTensor split on its rows over a mesh axis, the shifts
+point-to-point ops on that axis's group.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 
@@ -102,3 +103,83 @@ def exchange_row_halo(mesh, local_block, lo: int, hi: int,
             f"rows; multi-hop halos are not supported")
     out = _halo_exchange_block(local_block, lo, hi, mesh.get_group(axis))
     return out[:lo], out[lo + chunk:lo + chunk + hi]
+
+
+def _halo_exchange_tensor(x, lo: int, hi: int, group):
+    """`_halo_exchange_block` over a tensor on this rank's device: the
+    same two shifts, the same REPEAT_EDGE at the edge shards."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+
+    def peer(q):
+        return dist.get_global_rank(group, q)
+
+    x = x.contiguous()
+    left = x[:1].repeat((lo,) + (1,) * (x.dim() - 1))
+    right = x[-1:].repeat((hi,) + (1,) * (x.dim() - 1))
+    ops = []
+    if lo > 0 and r < n - 1:
+        ops.append(dist.P2POp(dist.isend, x[-lo:].contiguous(), peer(r + 1),
+                              group, _TAG_LEFT))
+    if lo > 0 and r > 0:
+        ops.append(dist.P2POp(dist.irecv, left, peer(r - 1), group,
+                              _TAG_LEFT))
+    if hi > 0 and r > 0:
+        ops.append(dist.P2POp(dist.isend, x[:hi].contiguous(), peer(r - 1),
+                              group, _TAG_RIGHT))
+    if hi > 0 and r < n - 1:
+        ops.append(dist.P2POp(dist.irecv, right, peer(r + 1), group,
+                              _TAG_RIGHT))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return torch.cat([left, x, right], dim=0)
+
+
+def sharded_stencil_map(fn: Callable, stencil: Sequence[int], mesh,
+                        axis: str = "sp"):
+    """Lift a per-window function to a sequence-sharded DTensor.
+
+    fn(window_block) maps a block of shape (m + lo + hi, ...) to outputs
+    (m, ...) where lo = -min(stencil), hi = max(stencil); the returned
+    callable takes a DTensor whose rows (dim 0) are split over `axis` of
+    the DeviceMesh `mesh` and returns one placed alike, every output row
+    computed with the neighbor halos exchanged between the axis's ranks.
+    """
+    from torch.distributed.tensor import DTensor, Shard
+
+    lo = max(0, -min(stencil))
+    hi = max(0, max(stencil))
+    i = mesh.mesh_dim_names.index(axis)
+    n = mesh.size(i)
+
+    def wrapper(x):
+        if not isinstance(x, DTensor) or x.placements[i] != Shard(0):
+            raise ValueError(f"sharded_stencil_map takes a DTensor with "
+                             f"its rows split over '{axis}'")
+        block = x.shape[0] // n
+        if max(lo, hi) > block:
+            raise ValueError(
+                f"stencil halo ({lo},{hi}) exceeds the per-shard block of "
+                f"{block} rows ({x.shape[0]} rows over {n} '{axis}' shards);"
+                f" multi-hop halos are not supported — use fewer shards or "
+                f"a narrower stencil")
+        padded = _halo_exchange_tensor(x.to_local(), lo, hi,
+                                       mesh.get_group(i))
+        return DTensor.from_local(fn(padded), mesh, x.placements,
+                                  run_check=False)
+
+    return wrapper
+
+
+def temporal_diff(mesh, axis: str = "sp"):
+    """Example/standard op: frame-to-previous-frame difference over a
+    sequence sharded across ranks (the shot-detection primitive)."""
+    def block(padded):
+        # padded has 1 halo row on the left
+        return padded[1:] - padded[:-1]
+
+    return sharded_stencil_map(block, stencil=[-1, 0], mesh=mesh, axis=axis)

@@ -8,17 +8,19 @@ device mesh with named axes:
     tp — tensor/model parallel      pp — in-program pipeline parallel
 
 `make_mesh` keeps the JAX package's factoring rules and returns the
-layout (devices reshaped under axis names); placing tensors over such a
-layout (`sharding`, `shard_batch`) is ROADMAP A.7b.  `host_mesh` is the
-gang's ("hosts", "local") mesh over its process group, one device per
-member (engine/gang.py).
+layout (devices reshaped under axis names).  `device_mesh` turns a
+layout into a `DeviceMesh` over the caller's process group, one rank per
+device; `sharding` and `shard_batch` place tensors over it as DTensors
+(the counterparts of `NamedSharding` and `jax.device_put`).  `host_mesh`
+is the gang's ("hosts", "local") mesh over its process group, one
+device per member (engine/gang.py).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -149,3 +151,95 @@ def auto_axes(n: int) -> Dict[str, int]:
     a, rest = split(n)
     b, c = split(rest)
     return {"dp": a, "sp": b, "tp": c}
+
+
+def device_mesh(layout: MeshLayout):
+    """The DeviceMesh of `layout` over the default process group, which
+    the caller formed (`torch.distributed.init_process_group`) with one
+    rank per device of the layout: rank r runs on the layout's r-th
+    device (row-major), which becomes its current CUDA device, and the
+    mesh's dimension names are the layout's axis names.  Raises unless
+    the group's world size equals the layout's device count.  Building
+    one creates each dimension's sub-groups, a step every rank takes
+    together; the gang's host meshes are cached apart (`host_mesh`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = layout.devices.size
+    if not dist.is_initialized():
+        raise ValueError("device_mesh needs the caller's process group "
+                         "(torch.distributed.init_process_group first)")
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"the process group has {world} ranks but the "
+                         f"mesh {layout.shape} lays out {n} devices")
+    devs = [torch.device(d) for d in layout.devices.reshape(-1)]
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh lays out devices of one type, got "
+                         f"{sorted(kinds)}")
+    mine = devs[dist.get_rank()]
+    if mine.type == "cuda":
+        torch.cuda.set_device(mine)
+    return DeviceMesh(mine.type, torch.arange(n).reshape(
+        layout.devices.shape), mesh_dim_names=layout.axis_names)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: ranks} of a DeviceMesh or a MeshLayout."""
+    if isinstance(mesh, MeshLayout):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_device(mesh):
+    """This rank's device on `mesh` (device_mesh made it current)."""
+    import torch
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+class Sharding(NamedTuple):
+    """A mesh and one DTensor placement per mesh dimension."""
+
+    mesh: Any
+    placements: Tuple[Any, ...]
+
+
+def sharding(mesh, *spec) -> Sharding:
+    """The counterpart of `NamedSharding(mesh, P(*spec))`: spec[d] names
+    the mesh axis (or a tuple of axes, in mesh order) that tensor dim d
+    is split over, or None; every mesh dimension no entry names is
+    Replicate().  `mesh` is a DeviceMesh or a MeshLayout (placements
+    alone need only the axis names)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(axis_sizes(mesh))
+    placements = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names axis {a!r}, not in "
+                                 f"the mesh's {names}")
+            if placements[names.index(a)] != Replicate():
+                raise ValueError(f"spec {spec} uses axis {a!r} twice")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of one dim must "
+                             f"be in the mesh's order {names}")
+        for i in idx:
+            placements[i] = Shard(dim)
+    return Sharding(mesh, tuple(placements))
+
+
+def shard_batch(mesh, arr, axis: str = "dp"):
+    """Place a host array, the same on every rank, as a DTensor with its
+    leading dim sharded over one mesh axis."""
+    from .distributed import replicate_to_global
+    return replicate_to_global(mesh, (axis,), arr)

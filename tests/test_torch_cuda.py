@@ -11,7 +11,12 @@ rows, and a two-member gang on the one card against a local run, byte
 for byte.  And the train path on the card: train_pose through the flash
 kernel (two launches a step), its checkpoint restored by PoseDetect and a
 trained detector's `.npz` by ObjectDetect, each giving the in-memory
-model's outputs.  Marked `cuda`: they need an NVIDIA card with nvcc
+model's outputs.  And in-program sharding on a one-rank NCCL group on the
+card: placements and temporal_diff exact, Ulysses against
+reference_attention (rtol 2e-4, atol 2e-5), a one-stage pipeline against
+its stage, the sharded train step with and without remat (equal losses
+under deterministic cuDNN; the first within rel 1e-3 of the unsharded
+step) and its DCP resume bit for bit.  Marked `cuda`: they need an NVIDIA card with nvcc
 (sm_90a) and skip elsewhere — except the check that a worker asked for
 a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
@@ -656,3 +661,124 @@ def test_gang_of_two_members_on_card_matches_local_run(card, tmp_path):
             w.stop()
         m.stop()
     assert len(want) == 40 and got == want
+
+
+@pytest.fixture()
+def one_rank_mesh(card):
+    """A (dp, sp, tp) = (1, 1, 1) DeviceMesh over a one-rank NCCL group on
+    the card, destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    from scanner_tpu_torch.parallel import device_mesh, make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        yield device_mesh(make_mesh({"dp": 1, "sp": 1, "tp": 1},
+                                    devices=[dev]))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_placements_and_halo_on_card(one_rank_mesh):
+    import numpy as np
+    from scanner_tpu_torch.parallel import (replicate_to_global,
+                                            shard_batch, temporal_diff)
+    rows = np.random.RandomState(0).randint(0, 9999, (600, 3, 16)) \
+        .astype(np.int32)
+    for placed in (shard_batch(one_rank_mesh, rows),
+                   replicate_to_global(one_rank_mesh, (None, "tp"), rows)):
+        assert placed.to_local().is_cuda
+        assert (placed.to_local().cpu().numpy() == rows).all()
+    diff = temporal_diff(one_rank_mesh)(
+        shard_batch(one_rank_mesh, rows, "sp")).to_local()
+    assert diff.is_cuda
+    np.testing.assert_array_equal(
+        diff.cpu().numpy(), rows - np.concatenate([rows[:1], rows[:-1]]))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_one_rank_on_card(one_rank_mesh, causal):
+    from scanner_tpu_torch.parallel import (make_ulysses_attention,
+                                            reference_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(2, 512, 4, 32, generator=g, device="cuda")
+               for _ in range(3))
+    got = make_ulysses_attention(one_rank_mesh, "sp", causal=causal)(q, k, v)
+    torch.testing.assert_close(got, reference_attention(q, k, v, causal),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_pipeline_one_stage_on_card(card):
+    """make_pipeline at pp 1, M 2 against its stage, and a one-stage
+    pipelined VideoPoseNet against the plain layout after
+    pp_params_to_plain (bf16: within 1e-2 of the output's scale)."""
+    import socket
+    import torch.distributed as dist
+    from scanner_tpu_torch.models import pose
+    from scanner_tpu_torch.models.convert import flax_params, load_params
+    from scanner_tpu_torch.parallel import (device_mesh, make_mesh,
+                                            make_pipeline,
+                                            stack_stage_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = device_mesh(make_mesh({"dp": 1, "sp": 1, "tp": 1, "pp": 1},
+                                     devices=[dev]))
+        g = torch.Generator(device="cuda").manual_seed(2)
+        p = {"w": torch.randn(32, 32, generator=g, device="cuda") * 0.1,
+             "b": torch.randn(32, generator=g, device="cuda") * 0.1}
+        x = torch.randn(8, 16, 32, generator=g, device="cuda")
+        y = make_pipeline(mesh, lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                          2)(stack_stage_params([p]), x)
+        torch.testing.assert_close(y, torch.tanh(x @ p["w"] + p["b"]),
+                                   rtol=1e-5, atol=1e-5)
+        piped = pose.init_params(0, device=dev, width=8, temporal_layers=1,
+                                 pipeline_mesh=mesh)
+        plain = pose.VideoPoseNet(width=8, temporal_layers=1)
+        load_params(plain, pose.pp_params_to_plain(flax_params(piped)))
+        clip = torch.randint(0, 256, (2, 4, 64, 64, 3), generator=g,
+                             device="cuda", dtype=torch.uint8)
+        with torch.no_grad():
+            a, b = piped(clip), plain.to(dev)(clip)
+        assert float((a - b).abs().max()) <= 1e-2 * max(
+            float(b.abs().max()), 1.0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_remat_and_resume_on_card(one_rank_mesh, tmp_path):
+    from scanner_tpu_torch.models import pose
+    from scanner_tpu_torch.models.checkpoint import TrainCheckpointer
+    clip_shape = (2, 4, 64, 64, 3)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for remat in (False, True):
+            step, model, opt, (clip, target) = pose.make_sharded_train_step(
+                one_rank_mesh, clip_shape=clip_shape, width=8, remat=remat)
+            runs[remat] = [float(step(clip, target)) for _ in range(3)]
+        ckpt = TrainCheckpointer(str(tmp_path / "ckpt"))
+        ckpt.save(3, model, opt)
+        want = float(step(clip, target))
+        ref = pose.init_params(0, device="cuda", width=8)
+        _, ref_step = pose.make_train_step(ref)
+        first = float(ref_step(clip.to_local(), target.to_local()))
+        step, model, opt, (clip, target) = pose.make_sharded_train_step(
+            one_rank_mesh, clip_shape=clip_shape, width=8, remat=True)
+        assert ckpt.restore(model, opt) == 3
+        got = float(step(clip, target))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert runs[True] == runs[False] and runs[False][-1] < runs[False][0]
+    assert abs(runs[False][0] - first) <= 1e-3 * abs(first)
+    assert got == want

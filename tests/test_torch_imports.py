@@ -152,6 +152,35 @@ def test_gang_modules_and_member_child_run_with_jax_blocked(tmp_path):
     assert out["ok"] is False and out["stage"] == "rendezvous"
 
 
+SHARDING_MODULES = ["parallel.collectives", "parallel.mesh",
+                    "parallel.distributed", "parallel.halo", "parallel.pp",
+                    "parallel.ulysses", "models.pose", "models.checkpoint"]
+
+
+def test_sharding_modules_import_with_jax_blocked():
+    """The in-program sharding modules (the pipeline, Ulysses, the
+    differentiable collectives, the sharded train step and its
+    checkpoints) import with jax and the JAX package absent."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['scanner_tpu'] = None; import importlib; "
+            + "; ".join(f"importlib.import_module('scanner_tpu_torch.{m}')"
+                        for m in SHARDING_MODULES)
+            + "; from scanner_tpu_torch.parallel import ("
+              "make_pipeline, make_ulysses_attention, sharded_stencil_map, "
+              "temporal_diff, sharding, shard_batch, replicate_to_global); "
+              "from scanner_tpu_torch.models.pose import ("
+              "PipelinedTemporalStack, pp_params_to_plain, "
+              "plain_params_to_pp, param_shardings, "
+              "make_sharded_train_step); "
+              "print(sorted(m for m in sys.modules "
+              "if m.split('.')[0] in ('jax', 'scanner_tpu') "
+              "and sys.modules[m] is not None))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_make_mesh_defaults_to_the_cards(monkeypatch):
     """make_mesh lays out every CUDA card unless given devices; without
     a card it raises rather than laying out the CPU."""
