@@ -110,6 +110,17 @@ Phases, each printed on its own line; any failure exits non-zero:
                   rows and epochs (spawn = the member process up to
                   its entry point, device = its card's context).
                   Skipped with [cluster];
+     coordinator  a Master in this process and one
+                  Worker(device="cuda:N", coordinator=CoordinatorConfig(
+                  <free port>, 1, 0)) in a child process (one process
+                  holds one default group, and [sharded] forms its own
+                  here): the worker joins a one-rank NCCL group for its
+                  lifetime before it registers, runs config 1 over the
+                  600 frames, and leaves the group when shut down.  Rows
+                  the same bytes as the main path's, the child's
+                  histogram launches equal config 1's, its group nccl of
+                  world size 1 with the join seconds, no child left.
+                  Skipped with [cluster];
   7. pose_serve   PoseDetect(width=8) with the shipped weights over a
                   stored table of 48 x 48 blob frames through
                   Client(device="cuda"): mean localization error under
@@ -156,6 +167,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                   bounds); against the CPU's rows, every CPU box met
                   within IoU 0.9 on >= 95 % of frames, embeddings at
                   cosine >= 0.99, masks at IoU >= 0.9 where matched;
+  9a. dp_apply   ObjectDetect (13 frames of 640 x 480, and 39 of the
+                  rect scenes at score_thresh 0.3) and PoseDetect (13
+                  blob frames of 48 x 48), width 8, shipped weights,
+                  through DataParallelApply over every card (two entries
+                  of cuda:0 on a one-card machine; odd batches over two
+                  replicas pad one) against the same op on one device,
+                  with [model_serve]'s bounds where it applies them:
+                  boxes within IoU 0.9 on >= 95 % of the rect scenes, the
+                  blob keypoint within one heatmap cell; the 640 x 480
+                  agreement at score_thresh 0.05 printed with the
+                  highest score of an unmatched box; on one card every
+                  op's rows the same bytes as one device's run on the
+                  replicas' shards; the gathered rows on the first device; ms per call on one device and
+                  over the replicas, cost_flops of each (equal);
  10. golden       the bench's Resize(320, 240) -> Blur(3, 1.1) ->
                   Histogram -> HistDiff chain, CropResize (64 x 64, boxes
                   from 4 % to 94 % of the frame) and OpticalFlow over 96
@@ -244,8 +269,9 @@ user's job takes.
 
 The line before the last is a JSON object {"kernels": [...]}; the
 histogram's `launches` counts config 1's run, [worker_task]'s,
-[cluster]'s and [gang]'s runs (a gang member's launches, made in its
-child process, are folded into this process's count by its worker), and
+[cluster]'s, [gang]'s and [coordinator]'s runs (a gang member's
+launches, made in its child process, are folded into this process's
+count by its worker; [coordinator]'s child reports its own), and
 the golden phase's card runs, fused and staged (a
 graph replay counts the launches the graph holds:
 cuda_ops.count_replay); the flash kernel's counts [pose_train]'s five
@@ -257,6 +283,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import itertools
 import json
 import logging
@@ -2869,6 +2896,315 @@ def sharded_phase(dev, seed: int, hist, work: str) -> dict:
 HIST_MAIN_FUNCTION = "hist_u8_privateILi3EE"
 
 
+# [dp_apply]: uneven batches over two replicas, so the padding path runs:
+# 13 frames of 640 x 480, and 39 of the shipped task's rect scenes (the
+# first 39 of [model_serve]'s 40)
+DP_FRAMES, DP_SCENES = 13, 39
+DP_ITERS = 10
+# where the replicas sit on cards of their own, their packed rows
+# (boxes in pixels, scores, keypoints in heatmap cells) may differ from
+# one device's run on the same shards by this share of the rows' largest
+# magnitude: the same kernels on the same shapes, on other cards
+DP_SHARD_RTOL = 1e-3
+
+
+def unmatched_scores(rows_a, rows_b, unpack) -> list:
+    """The scores of the detections of `rows_a` that no detection of
+    `rows_b` meets (same_box at IoU 0.9), over all frames."""
+    from scanner_tpu_torch.models import detect_train as dt
+    out = []
+    for ra, rb in zip(rows_a, rows_b):
+        a, b = unpack(ra), unpack(rb)
+        out += [float(sa) for x, sa in zip(a["boxes"], a["scores"])
+                if not any(dt.same_box(x, y) for y in b["boxes"])]
+    return out
+
+
+def dp_apply_phase(seed: int) -> dict:
+    """[dp_apply]: ObjectDetect and PoseDetect, width 8 with the shipped
+    weights, through DataParallelApply over every card of the machine
+    (two entries of cuda:0 when it has one) on uneven batches, against
+    the same op on one device.  The bounds are [model_serve]'s, where it
+    applies them: ObjectDetect's boxes within IoU 0.9 on >= 95 % of the
+    rect scenes at score_thresh 0.3; the blob keypoint of PoseDetect
+    within one heatmap cell.  On the 640 x 480 frames at the default
+    score_thresh 0.05 the agreement is printed, as [model_serve] prints
+    the card's against the CPU's there (near-tied low scores), with the
+    highest score of a box the replicas did not meet.  On one card the
+    replicas' rows must equal one device's run on the same shards byte
+    for byte: the split changes the batch sizes the library's kernels
+    see, and nothing else; on several cards they must agree with it
+    within DP_SHARD_RTOL, so that every set keeps a check there."""
+    import numpy as np
+    import torch
+    from scanner_tpu_torch import models
+    from scanner_tpu_torch.common import DeviceType
+    from scanner_tpu_torch.graph.ops import KernelConfig
+    from scanner_tpu_torch.models import detect_train as dt
+    from scanner_tpu_torch.models import pose_train
+    from scanner_tpu_torch.models.detection import unpack_detections
+    n_cards = torch.cuda.device_count()
+    first = torch.device("cuda", 0)
+    replicas = [torch.device("cuda", i) for i in range(n_cards)] \
+        if n_cards > 1 else [first, first]
+    clips, _, _ = pose_train.synth_batch(np.random.RandomState(seed), 2,
+                                         8, POSE_SIZE)
+    rng = np.random.RandomState(21)
+    rect = np.stack([dt.render_rect_scene(rng)[0]
+                     for _ in range(DP_SCENES)])
+    # (what, op, frames, keyword arguments); the first two are timed
+    runs = [("objectdetect", "ObjectDetect", make_frames(DP_FRAMES, seed + 2),
+             {}),
+            ("posedetect", "PoseDetect",
+             clips.reshape(-1, POSE_SIZE, POSE_SIZE, 3)[:DP_FRAMES], {}),
+            ("objectdetect_rect", "ObjectDetect", rect,
+             {"score_thresh": 0.3})]
+    out = dict(device_count=n_cards, replicas=len(replicas),
+               replica_devices=",".join(str(d) for d in replicas),
+               batch=DP_FRAMES, rect_batch=DP_SCENES)
+    for key, op, frames, kw in runs:
+        def build(devices):
+            return getattr(models, op)(
+                KernelConfig(device=DeviceType.TPU, devices=devices),
+                width=8, **kw)
+        one, dp = build([first]), build(replicas)
+        x = torch.from_numpy(frames).to(first)
+        a, b = one.execute(x), dp.execute(x)
+        torch.cuda.synchronize()
+        check(b.device == first and b.shape == a.shape
+              and bool(torch.isfinite(b).all()),
+              f"[dp_apply] {op}: replicas gave {tuple(b.shape)} on "
+              f"{b.device}, one device {tuple(a.shape)} on {a.device}")
+        # the one device on the replicas' shards: what the split alone
+        # changes (the library's kernels per batch size), not the wrapper
+        n, rows = len(replicas), len(frames)
+        padded = torch.cat([x, x.new_zeros((-rows % n,) + x.shape[1:])])
+        shards = torch.cat([one.execute(c) for c in padded.chunk(n)])[:rows]
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        shards = shards.cpu().numpy()
+        out[f"{key}_identical"] = bool(np.array_equal(a, b))
+        same = bool(np.array_equal(shards, b))
+        out[f"{key}_identical_to_one_device_on_shards"] = same
+        # replicas on one card run its kernels on the same shapes: the
+        # same bytes; on cards of their own, the same packed rows within
+        # DP_SHARD_RTOL of the rows' scale
+        diff = float(np.abs(shards.astype(np.float64) - b).max())
+        bound = DP_SHARD_RTOL * max(1.0, float(np.abs(shards).max()))
+        out[f"{key}_max_abs_diff_to_one_device_on_shards"] = diff
+        check(same if n_cards == 1 else diff <= bound,
+              f"[dp_apply] {op}: the replicas' rows differ from one "
+              f"device's on the same shards by {diff} (bound "
+              f"{0 if n_cards == 1 else bound})")
+        if op == "ObjectDetect":
+            share = dt.boxes_agree(a, b, unpack_detections)
+            missed = unmatched_scores(a, b, unpack_detections)
+            out[f"{key}_boxes_agree"] = share
+            out[f"{key}_unmatched_boxes"] = len(missed)
+            out[f"{key}_unmatched_max_score"] = max(missed, default=None)
+            if kw:
+                check(share >= 0.95, f"[dp_apply] ObjectDetect on the "
+                                     f"rect scenes: one device's boxes met "
+                                     f"within IoU 0.9 on {share:.3f} of "
+                                     f"frames < 0.95")
+        else:
+            step = float(np.abs(a[:, 0, :2] - b[:, 0, :2]).max())
+            check(step <= 1.0, f"[dp_apply] PoseDetect: the blob keypoint "
+                               f"moved {step} heatmap cells")
+            out[f"{key}_kp0_max_cell_diff"] = step
+            out[f"{key}_max_score_diff"] = float(
+                np.abs(a[:, :, 2] - b[:, :, 2]).max())
+        if kw:
+            continue
+        out[f"{key}_one_device_ms"] = cuda_ms(lambda: one.execute(x),
+                                              DP_ITERS)
+        out[f"{key}_replicas_ms"] = cuda_ms(lambda: dp.execute(x),
+                                            DP_ITERS)
+        f_one, f_dp = one.infer_cost_flops(frames), \
+            dp.infer_cost_flops(frames)
+        check(f_one == f_dp, f"[dp_apply] {op}: cost_flops {f_dp} over "
+                             f"the replicas, {f_one} on one device")
+        out[f"{key}_cost_flops"] = f_dp
+    return out
+
+
+def coordinator_worker(master: str, db_path: str, coordinator: str,
+                       out: str, device: str) -> int:
+    """The [coordinator] phase's child process: a Worker on `device`
+    that joins a one-rank process group at `coordinator` for its
+    lifetime, serves `master` until shutdown_cluster, and writes to
+    `out` what group it joined, whether it left it, and its histogram
+    launches."""
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+    import scanner_tpu_torch.kernels  # noqa: F401  (registers the ops)
+    from scanner_tpu_torch.engine.service import Worker
+    from scanner_tpu_torch.kernels import cuda_ops
+    from scanner_tpu_torch.parallel.distributed import CoordinatorConfig
+    t0 = time.time()
+    w = Worker(master, db_path=db_path, device=device,
+               advertise_host="127.0.0.1",
+               coordinator=CoordinatorConfig(coordinator, 1, 0))
+    info = dict(backend=dist.get_backend(),
+                world_size=dist.get_world_size(), rank=dist.get_rank(),
+                join_s=w.group_join_s, worker_up_s=time.time() - t0)
+    w.wait_for_shutdown()
+    info.update(left_group=not dist.is_initialized(),
+                launches=cuda_ops.histogram_launches)
+    with open(out, "w") as fh:
+        json.dump(info, fh)
+    return 0
+
+
+def proc_start(pid: int):
+    """The start time (clock ticks since boot) of live process `pid`, or
+    None when it is gone or a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            fields = fh.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return None if fields[0] in "ZX" else int(fields[19])
+
+
+def proc_children(pid: int) -> set:
+    """The (pid, start time) of the live children of process `pid`."""
+    kids = set()
+    for task in glob.glob(f"/proc/{pid}/task/*/children"):
+        try:
+            with open(task) as fh:
+                kids.update(int(k) for k in fh.read().split())
+        except OSError:
+            continue
+    return {(k, t) for k in kids if (t := proc_start(k)) is not None}
+
+
+def proc_descendants(pid: int) -> set:
+    """The (pid, start time) of the live descendants of process `pid`."""
+    out, todo = set(), [pid]
+    while todo:
+        for kid in proc_children(todo.pop()) - out:
+            out.add(kid)
+            todo.append(kid[0])
+    return out
+
+
+def set_subreaper(on: bool) -> None:
+    """Make this process the one that inherits the orphans of its
+    descendants (prctl PR_SET_CHILD_SUBREAPER), so that a process a
+    child started and left behind stays visible as a child of this one."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, int(on), 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def processes_left(since: int, seen: set) -> list:
+    """What is still alive of a child's process tree once the child was
+    reaped: the descendants `seen` while it ran, and this process's
+    children that started at `since` (clock ticks since boot) or later
+    (the orphans that a subreaper inherits)."""
+    left = {(p, t) for p, t in seen if proc_start(p) == t}
+    left |= {(p, t) for p, t in proc_children(os.getpid()) if t >= since}
+    return sorted(p for p, _ in left)
+
+
+def coordinator_phase(st, frames, work: str, main_rows: dict,
+                      main_launches: int) -> dict:
+    """[coordinator]: a Master in this process and one
+    Worker(device="cuda:N", coordinator=CoordinatorConfig(<free port>,
+    1, 0)) in a child process (this process may hold [sharded]'s group
+    later, and a process holds one default group): config 1 over the
+    main path's frames.  The child's group must be NCCL, of one rank,
+    and gone when it stops; rows the same bytes as the main path's;
+    its histogram launches those of config 1; nothing of the child's
+    process tree left."""
+    import torch
+    from scanner_tpu_torch.engine.service import Master
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    db_path = os.path.join(work, "coordinator_db")
+    Database(PosixStorage(db_path)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    dev = f"cuda:{torch.cuda.current_device()}"
+    master = Master(db_path=db_path, advertise_host="127.0.0.1")
+    addr = f"127.0.0.1:{master.port}"
+    result = os.path.join(work, "coordinator_child.json")
+    t0 = time.time()
+    # orphans of the worker's tree come to this process, where the
+    # check after shutdown sees them
+    set_subreaper(True)
+    since = int(time.clock_gettime(time.CLOCK_BOOTTIME)
+                * os.sysconf("SC_CLK_TCK"))
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--coordinator-worker",
+         addr, db_path, f"127.0.0.1:{free_port()}", result, dev],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seen = set()
+    client = st.Client(db_path=db_path, master=addr)
+    out = {"device": dev}
+    try:
+        deadline = time.time() + 180
+        while client.job_status()["num_workers"] < 1:
+            check(child.poll() is None and time.time() < deadline,
+                  f"[coordinator] the worker never registered "
+                  f"(exit {child.poll()})")
+            seen |= proc_descendants(child.pid)
+            time.sleep(0.1)
+        out["worker_registered_s"] = round(time.time() - t0, 3)
+        wall, stages = run_config(client, st, 1, "coordinator1")
+        s = client.job_status()
+        check(s["finished"] and s["failed_jobs"] == []
+              and s["task_failures"] == 0,
+              f"[coordinator] config 1 status: {s}")
+        rows = stored_items(client._db, "coordinator1")
+        check(len(rows) == len(frames) and same_bytes(rows, main_rows[1]),
+              "[coordinator] config 1 rows differ from the main path's")
+        out.update(config1_fps=round(len(frames) / wall, 3),
+                   config1_tasks=s["total_tasks"],
+                   config1_stage_s=json.dumps(stages, sort_keys=True),
+                   rows_identical_to_main_path=True)
+        seen |= proc_descendants(child.pid)
+        check(client.shutdown_cluster() == 1,
+              "[coordinator] shutdown_cluster did not reach the worker")
+        log, _ = child.communicate(timeout=120)
+    finally:
+        client.stop()
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        master.stop()
+        # a descendant may take a moment to see its parent gone
+        end = time.time() + 10
+        while (left := processes_left(since, seen)) and time.time() < end:
+            time.sleep(0.1)
+        for pid in left:     # stop what the check below reports
+            with contextlib.suppress(OSError):
+                os.kill(pid, 9)
+                os.waitpid(pid, 0)
+        set_subreaper(False)
+    check(child.returncode == 0 and os.path.exists(result),
+          f"[coordinator] the worker exited {child.returncode}: "
+          f"{log[-2000:]}")
+    with open(result) as fh:
+        info = json.load(fh)
+    check(info["backend"] == "nccl" and info["world_size"] == 1
+          and info["rank"] == 0,
+          f"[coordinator] the worker's group: {info}")
+    check(info["left_group"], "[coordinator] the worker kept its group")
+    check(info["launches"] == main_launches,
+          f"[coordinator] the worker launched the histogram kernel "
+          f"{info['launches']} times, config 1 {main_launches}")
+    check(not left,
+          f"[coordinator] processes of the worker's tree left: {left}")
+    out.update(group_backend=info["backend"],
+               group_world_size=info["world_size"],
+               group_join_s=round(info["join_s"], 4),
+               worker_up_s=round(info["worker_up_s"], 3),
+               left_group=True, launches=info["launches"],
+               descendants_seen=len(seen), processes_left=len(left))
+    return out
+
+
 def hist_cases(g):
     """(what, uint8 frames, bins) that [kernel] holds the histogram
     kernel to its plain version on: the main path's shape, the batch
@@ -2934,6 +3270,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=600)
     ap.add_argument("--seed", type=int, default=0)
+    # [coordinator]'s child: MASTER DB COORDINATOR OUT DEVICE
+    ap.add_argument("--coordinator-worker", nargs=5,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "scanner_tpu_torch")):
@@ -2945,6 +3284,8 @@ def main() -> int:
         print("no CUDA card: chip_smoke.py measures the card and has no "
               "CPU mode", file=sys.stderr)
         return 2
+    if args.coordinator_worker:
+        return coordinator_worker(*args.coordinator_worker)
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -3161,9 +3502,17 @@ def main() -> int:
             phase("gang", ran=True, **gg,
                   main_path_config1_fps=round(args.frames / secs[1], 3),
                   card=repr(card))
+            # -- a worker joined to a process group for its lifetime --
+            co = coordinator_phase(st, frames, work, main_rows,
+                                   launches[1])
+            cluster_launches += co["launches"]
+            phase("coordinator", ran=True, **co,
+                  main_path_config1_fps=round(args.frames / secs[1], 3),
+                  card=repr(card))
         else:
             phase("cluster", ran=False, reason="no-grpcio")
             phase("gang", ran=False, reason="no-grpcio")
+            phase("coordinator", ran=False, reason="no-grpcio")
 
         # -- the pose model: serve, then train ------------------------
         phase("pose_serve", **pose_serve(st, work, args.seed))
@@ -3177,6 +3526,7 @@ def main() -> int:
         # -- the model zoo, then the golden chain ----------------------
         phase("model_serve", **model_serve(st, work, args.seed),
               card=repr(card))
+        phase("dp_apply", **dp_apply_phase(args.seed), card=repr(card))
         gold = golden(st, work, args.seed)
         phase("golden", **gold, card=repr(card))
         phase("ledgers", **ledgers(gpu, ("Resize", "Blur", "Histogram",

@@ -15,7 +15,9 @@ Device placement is explicit: the evaluator is given the torch.device its
 client runs on.  On a CUDA device every device kernel's input columns are
 staged onto the card (instance i of an executor owns card i mod n) and
 device kernels launch their CUDA kernels there; on the CPU the columns
-stay numpy and device kernels run their host flavors.  There is no probe
+stay numpy and device kernels run their host flavors.  A model kernel
+replicates over the instance's partition of the host's cards
+(`instance_devices`): every card when one instance runs.  There is no probe
 and no fallback: asking for "cuda" without a card raises.
 
 Bucketed dispatch: device-kernel calls are rounded up a small power-of-two
@@ -138,16 +140,42 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return dev
 
 
+def kernel_devices(device: torch.device) -> List[torch.device]:
+    """The devices kernels of a client on `device` may use: on CUDA
+    every card of the host, starting at `device` (cards device.index,
+    device.index + 1, ... mod n); on the CPU just `device`."""
+    if device.type != "cuda":
+        return [device]
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", (device.index + k) % n) for k in range(n)]
+
+
 def assigned_device(device: torch.device, instance: int) -> torch.device:
     """The device pipeline instance `instance` owns: card
     (device.index + instance) mod n on CUDA (with one card, every
     instance owns cuda:0), the CPU otherwise.  Used by both the
     evaluator and the executor (TaskItem device assignment at enqueue
     time): one mapping, two sides of the handoff."""
-    if device.type != "cuda":
-        return device
-    n = torch.cuda.device_count()
-    return torch.device("cuda", (device.index + instance) % n)
+    devs = kernel_devices(device)
+    return devs[instance % len(devs)]
+
+
+def instance_devices(device: torch.device, instance: int,
+                     instances: int = 1) -> List[torch.device]:
+    """The devices pipeline instance `instance` of `instances` hands its
+    model kernels (their DataParallelApply replicas).  One instance
+    keeps every card of the host; N instances partition them, so
+    concurrent instances never replicate onto each other's cards: every
+    N-th card from the instance's own, or that one card when there are
+    more instances than cards.  A partition leads with
+    assigned_device(device, instance), so the evaluator and the
+    executor agree."""
+    devs = kernel_devices(device)
+    if instances <= 1 or len(devs) <= 1:
+        return devs
+    if instances <= len(devs):
+        return devs[instance::instances]
+    return [devs[instance % len(devs)]]
 
 
 def default_pipeline_instances(configured: Optional[int],
@@ -789,17 +817,24 @@ class TaskEvaluator:
                  stage: Optional[bool] = None,
                  skip_fetch_resources: bool = False,
                  precompile: Optional[Tuple[int, int, int]] = None,
-                 instance: int = 0):
+                 instance: int = 0, instances: int = 1,
+                 devices: Optional[List[Any]] = None):
         """`device` is the client's device.  `stage` says whether device
         kernels' input columns are staged onto this instance's device as
         tensors; it defaults to True exactly when that is a CUDA card.
         `precompile` is a (frame_h, frame_w, work_packet_size) hint for
         the bucket-ladder warm-up (the engine's geometry is not knowable
-        from the graph alone)."""
+        from the graph alone).  Device kernels see `devices` (their
+        KernelConfig.devices: the replicas of a model kernel's
+        DataParallelApply), by default this instance's partition of
+        the host's cards (instance_devices); stdlib staging and calls
+        stay on the instance's own device."""
         self.info = info
         self.profiler = profiler
         self.instance = instance
         self.device = assigned_device(device, instance)
+        if devices is None:
+            devices = instance_devices(device, instance, instances)
         self.stage = (self.device.type == "cuda") if stage is None \
             else bool(stage)
         self.kernels: Dict[int, KernelInstance] = {}
@@ -807,7 +842,7 @@ class TaskEvaluator:
             if not n.is_builtin:
                 on_dev = n.effective_device() == DeviceType.TPU
                 self.kernels[n.id] = KernelInstance(
-                    n, profiler, [self.device] if on_dev else None,
+                    n, profiler, list(devices) if on_dev else None,
                     device=self.device if on_dev else None,
                     staged=on_dev and self.stage)
         for ki in self.kernels.values():

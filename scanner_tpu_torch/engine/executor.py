@@ -851,7 +851,7 @@ class LocalExecutor:
                                  stage=self.stage,
                                  skip_fetch_resources=skip_fetch,
                                  precompile=precompile,
-                                 instance=idx)
+                                 instance=idx, instances=n_evals)
 
         def evaluator(evaluator_idx: int):
             te = None

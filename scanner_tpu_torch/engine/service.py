@@ -26,7 +26,10 @@ plan tasks and create tables.  A worker runs every task on its
 A bulk with `PerfParams.gang_hosts > 0` runs each task on a gang of
 workers (engine/gang.py): the master forms the gang and fences it with
 a `(gang_id, epoch)` pair, and each member runs in a child process of
-its worker, on the worker's device.
+its worker, on the worker's device.  A worker started with
+`coordinator=` joins a process group for its whole lifetime (NCCL on
+its card, gloo on the CPU; parallel/distributed.py `join`), as a JAX
+worker joins jax.distributed; it pulls tasks like any other worker.
 
 The file follows the JAX package's engine/service.py class for class:
 its RPCs, journal records and checkpoint keys are the JAX package's.
@@ -47,6 +50,7 @@ import cloudpickle
 import torch
 
 from ..common import CacheMode, JobException, PerfParams, ScannerException
+from ..parallel import distributed as _distributed
 from ..storage import Database, make_storage
 from ..storage import metadata as md
 from ..storage.items import seal_blob
@@ -3349,7 +3353,8 @@ class WorkerPipeline:
                         self.jobs or []),
                     # device affinity: reused instance idx keeps
                     # owning card idx mod n across pipeline entries
-                    instance=idx)
+                    instance=idx,
+                    instances=self.executor.pipeline_instances)
                 self._evaluators[idx] = te
             return te
 
@@ -3385,10 +3390,17 @@ class Worker:
     `evaluate.resolve_device`, so asking for a card without one raises.
     `compilation_cache_dir` is accepted for the JAX package's signature
     and ignored: the kernel libraries are built once into
-    scanner_tpu_torch/_build/.  `coordinator` (joining a process group
-    for the worker's lifetime) is ROADMAP A.7b(b) and raises
-    NotImplementedError; a gang bulk's members join a process group of
-    their own per gang epoch (engine/gang.py).
+    scanner_tpu_torch/_build/.
+
+    `coordinator` (a parallel.distributed.CoordinatorConfig) joins this
+    process to a process group for the worker's lifetime — "nccl" bound
+    to the worker's card, "gloo" for a CPU worker — before the worker
+    binds its server or starts a thread; a join that fails raises
+    `RendezvousError` with nothing started, a constructor that fails
+    after the join leaves the group again, and `stop()` leaves it.  Task dispatch does not change: each member registers and
+    pulls tasks as any worker does; the group is there for kernels that
+    build meshes over it.  A gang bulk's members join a process group
+    of their own per gang epoch (engine/gang.py), in child processes.
     """
 
     def __init__(self, master_address: str, db_path: str, port: int = 0,
@@ -3405,14 +3417,40 @@ class Worker:
                  compilation_cache_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda"):
         del compilation_cache_dir  # see the class docstring
-        if coordinator is not None:
-            raise NotImplementedError(
-                "Worker(coordinator=) joins a process group for the "
-                "worker's lifetime, which only in-program sharding "
-                "uses across cards: ROADMAP A.7b(b)")
         # resolved before anything starts: a worker asked for a card
         # that is not there raises here, with no server bound
         self.device = resolve_device(device)
+        # the lifetime group, joined before any server or thread
+        # exists (reference worker-per-node topology, worker.cpp:484)
+        self.coordinator = coordinator
+        self.group_join_s: Optional[float] = None
+        if coordinator is not None:
+            self.group_join_s = _distributed.join(coordinator, self.device)
+        self._server = None
+        self.metrics_server: Optional[MetricsServer] = None
+        try:
+            self._start(master_address, db_path, port, storage_type,
+                        num_load_workers, num_save_workers,
+                        pipeline_instances, decoder_threads, metrics_port,
+                        metrics_host, advertise_host)
+        except BaseException:
+            # a worker that did not start leaves what it had started:
+            # its servers and its lifetime group, so that this process
+            # can retry, with another coordinator too
+            if self._server is not None:
+                self._server.stop()
+            if self.metrics_server is not None:
+                self.metrics_server.stop()
+            if coordinator is not None:
+                _distributed.shutdown()
+            raise
+
+    def _start(self, master_address, db_path, port, storage_type,
+               num_load_workers, num_save_workers, pipeline_instances,
+               decoder_threads, metrics_port, metrics_host,
+               advertise_host) -> None:
+        """The rest of the constructor: the database, the servers, the
+        executor, registration with the master and the threads."""
         # gang member runners re-derive the job from these
         # (engine/gang.py: one child process per gang epoch, on this
         # worker's device)
@@ -3458,7 +3496,6 @@ class Worker:
         }, port=port, tracer=self.tracer)
         self.port = self._server.port
         self._server.start()
-        self.metrics_server: Optional[MetricsServer] = None
         if metrics_port is not None:
             self.metrics_server = MetricsServer(
                 port=metrics_port, statusz=self._statusz,
@@ -4386,6 +4423,8 @@ class Worker:
             self._links = {}
         else:
             self.master.close()
+        if self.coordinator is not None:
+            _distributed.shutdown()
 
 
 # ---------------------------------------------------------------------------

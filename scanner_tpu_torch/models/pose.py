@@ -25,7 +25,7 @@ from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
 from .convert import (_flax_entries, flatten_params, flax_params,
                       load_params, load_weights)
-from .infer import lowered_flops
+from .infer import DataParallelApply
 from .nets import Backbone, DeconvHead, Dense, TemporalBlock, init_module_
 
 NUM_KEYPOINTS = 17
@@ -454,10 +454,24 @@ def apply_and_peaks(model: VideoPoseNet, clip: torch.Tensor) -> torch.Tensor:
     return torch.stack([xs.float(), ys.float(), scores], dim=-1)
 
 
+class PoseKeypoints(nn.Module):
+    """A VideoPoseNet as a per-frame op: (B, H, W, 3) uint8 frames ->
+    (B, K, 3) [x, y, score] (apply_and_peaks on one-frame clips)."""
+
+    def __init__(self, model: VideoPoseNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        return apply_and_peaks(self.model, frames[:, None])
+
+
 @register_op(device=DeviceType.TPU, batch=8)
 class PoseDetect(Kernel):
-    """Per-frame pose keypoints (reference pose_detection app op), on the
-    device the engine gives this kernel (the client's card, or the CPU).
+    """Per-frame pose keypoints (reference pose_detection app op),
+    replicated over the devices the engine gives this kernel
+    (DataParallelApply; the client's card, the host's cards, or the
+    CPU).
 
     With `checkpoint_dir=` an exported `.npz` weight file or a
     checkpoint directory of models/checkpoint.py (train_pose writes one)
@@ -471,30 +485,24 @@ class PoseDetect(Kernel):
                  checkpoint_dir: Optional[str] = None,
                  pretrained: bool = True):
         super().__init__(config)
-        self.device = torch.device(config.devices[0]) if config.devices \
-            else torch.device("cpu")
         self.model = VideoPoseNet(width=width)
         shipped = self._shipped if (pretrained and
                                     width == self._shipped_width) else None
         load_weights(self.model, shipped, checkpoint_dir, seed)
-        self.model.to(self.device).eval()
+        # dp-shard batches over every device the engine handed this
+        # kernel, as the JAX op does
+        self._dp = DataParallelApply(PoseKeypoints(self.model),
+                                     config.devices)
 
     def infer_cost_flops(self, batch):
         """FLOPs of one inference call on `batch` (the MFU probe,
-        infer.lowered_flops); None when none are counted."""
+        DataParallelApply.cost_flops); None when none are counted."""
         if not isinstance(batch, (np.ndarray, torch.Tensor)):
             batch = np.stack(batch)
-        x = torch.as_tensor(batch).to(self.device)
-        return lowered_flops(apply_and_peaks, self.model, x[:, None])
+        return self._dp.cost_flops(torch.as_tensor(batch))
 
     def execute(self, frame: Sequence[FrameType]) -> Sequence[Any]:
         """(B, K, 3) [x, y, score] per batch: a tensor left on the card
         when the frames came as a CUDA tensor (the sink fetches once per
         task), a numpy array when they came from the host."""
-        on_host = not isinstance(frame, torch.Tensor)
-        if not isinstance(frame, (np.ndarray, torch.Tensor)):
-            frame = np.stack(frame)
-        x = torch.as_tensor(frame).to(self.device)
-        with torch.no_grad():
-            kp = apply_and_peaks(self.model, x[:, None])
-        return kp.cpu().numpy() if on_host else kp
+        return self._dp(frame)

@@ -1,17 +1,25 @@
-"""Multi-process groups (torch.distributed) for gang members.
+"""Multi-process groups (torch.distributed) for gang members and for
+workers that span several hosts.
 
 The reference scales across nodes with one worker process per node and
 NCCL/MPI underneath (scanner/engine/worker.cpp:484 topology,
-master.cpp:1558-1607 task sharding).  The gang-scheduled tasks of
-engine/gang.py join one `torch.distributed` process group per gang
-epoch: member 0's TCPStore serves at the coordinator address, every
-member names its rank and the world size itself (nothing on a host
-tells a program of a cluster), and `shutdown()` tears the group down
-between epochs so a surviving member can re-form at a NEW coordinator.
+master.cpp:1558-1607 task sharding).  Two kinds of process join one
+`torch.distributed` process group here; in both, rank 0's TCPStore
+serves at the coordinator address and every process names its rank and
+the world size itself (nothing on a host tells a program of a
+cluster):
+  * the gang-scheduled tasks of engine/gang.py, one group per gang
+    epoch; `shutdown()` tears it down between epochs so a surviving
+    member can re-form at a NEW coordinator;
+  * a `Worker(coordinator=)` (engine/service.py), one group for the
+    worker's lifetime (`join`), there for kernels that build meshes
+    over it, as the JAX package's workers join jax.distributed.
 
 The backend is the caller's explicit choice, never a probe of what the
 machine has: the gang passes "gloo", because every gang collective
-moves host data (a digest, pickled output shards, halo row blocks).
+moves host data (a digest, pickled output shards, halo row blocks); a
+lifetime group follows the worker's device: "nccl" bound to its card,
+"gloo" on the CPU.
 
 Failure classification: a rendezvous that does not complete raises
 `RendezvousError` — the engine treats it as TRANSIENT (the peer set
@@ -23,6 +31,7 @@ requeues strike-free instead of striking a healthy job
 from __future__ import annotations
 
 import datetime
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -48,14 +57,15 @@ class RendezvousError(ScannerException):
 
 @dataclass
 class CoordinatorConfig:
-    """Multi-process wiring for one gang member.
+    """Multi-process wiring for one gang member or one worker.
 
     address: "host:port" of process 0's TCPStore.
     num_processes: total participating processes (the world size).
     process_id: this process's rank in [0, num_processes).
     local_device_ids: kept for the JAX package's signature; a torch
         process names its card itself (engine/gang.py passes the
-        worker's device to the member's executor).
+        worker's device to the member's executor; a worker joins on
+        its own device).
     """
 
     address: str
@@ -69,7 +79,7 @@ _init_config: Optional[CoordinatorConfig] = None
 
 def initialize(config: CoordinatorConfig,
                init_timeout: Optional[float] = None,
-               backend: str = "gloo") -> None:
+               backend: str = "gloo", device_id=None) -> None:
     """Join the process group (idempotent per process for the SAME
     config; a different config while initialized is an error, not a
     silent no-op — call `shutdown()` first to re-form at a new
@@ -77,9 +87,11 @@ def initialize(config: CoordinatorConfig,
 
     `init_timeout` bounds the rendezvous and every later collective of
     the group; None applies DEFAULT_INIT_TIMEOUT_S — never unbounded, so
-    one lost peer cannot pin the survivors forever.  A failed or
-    timed-out rendezvous raises `RendezvousError` (transient to the
-    engine).  `backend` is passed to `init_process_group` as given.
+    one lost peer cannot pin the survivors forever.  A failed or timed-out rendezvous raises
+    `RendezvousError` (transient to the engine).  `backend` is passed to
+    `init_process_group` as given, and so is `device_id` (a card: NCCL
+    then binds it and forms its communicator at once, under the same
+    timeout).
     """
     global _init_config
     if _init_config is not None:
@@ -107,7 +119,8 @@ def initialize(config: CoordinatorConfig,
             backend, init_method=f"tcp://{config.address}",
             world_size=int(config.num_processes),
             rank=int(config.process_id),
-            timeout=datetime.timedelta(seconds=float(init_timeout)))
+            timeout=datetime.timedelta(seconds=float(init_timeout)),
+            **({} if device_id is None else {"device_id": device_id}))
     except Exception as e:  # noqa: BLE001 — the store raises
         # DistStoreError / RuntimeError / TimeoutError depending on
         # where the join broke; all are the same transient peer-set
@@ -121,6 +134,36 @@ def initialize(config: CoordinatorConfig,
     _tracing.add_event("rendezvous.initialized",
                        process_id=config.process_id)
     _init_config = config
+
+
+def join(config: CoordinatorConfig, device) -> float:
+    """Join the process group for a process's lifetime on `device` (a
+    torch.device): "nccl" bound to the card on CUDA, "gloo" on the CPU.
+    One small all-reduce proves that the group formed before the caller
+    goes on.  Returns the seconds the join took; raises
+    `RendezvousError`, with no group left, when it did not form."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.monotonic()
+    cuda = device.type == "cuda"
+    initialize(config, backend="nccl" if cuda else "gloo",
+               device_id=device if cuda else None)
+    try:
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe)
+        got = int(probe.item())
+    except Exception as e:  # noqa: BLE001 — a peer lost mid-join
+        shutdown()
+        raise RendezvousError(
+            f"process group at {config.address} formed but its first "
+            f"all-reduce failed: {e}") from e
+    if got != int(config.num_processes):
+        shutdown()
+        raise RendezvousError(
+            f"process group at {config.address}: the first all-reduce "
+            f"counted {got} processes, not {config.num_processes}")
+    return time.monotonic() - t0
 
 
 def shutdown() -> None:

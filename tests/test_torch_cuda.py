@@ -16,7 +16,10 @@ card: placements and temporal_diff exact, Ulysses against
 reference_attention (rtol 2e-4, atol 2e-5), a one-stage pipeline against
 its stage, the sharded train step with and without remat (equal losses
 under deterministic cuDNN; the first within rel 1e-3 of the unsharded
-step) and its DCP resume bit for bit.  Marked `cuda`: they need an NVIDIA card with nvcc
+step) and its DCP resume bit for bit.  And several cards: the model ops
+over DataParallelApply's replicas (every card, or two on one) against one
+card within the model bounds, and a Worker(coordinator=) on a one-rank
+NCCL group for its lifetime.  Marked `cuda`: they need an NVIDIA card with nvcc
 (sm_90a) and skip elsewhere — except the check that a worker asked for
 a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
@@ -661,6 +664,107 @@ def test_gang_of_two_members_on_card_matches_local_run(card, tmp_path):
             w.stop()
         m.stop()
     assert len(want) == 40 and got == want
+
+
+def _replica_devices():
+    """Every card of the machine; two entries of cuda:0 on one card."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 \
+        else [torch.device("cuda", 0)] * 2
+
+
+@pytest.mark.parametrize("op", ["ObjectDetect", "PoseDetect"])
+def test_data_parallel_apply_replicas_on_card(card, op):
+    """A model op over DataParallelApply's replicas on the card(s),
+    against the same op on one card, on uneven batches (odd rows over 2
+    replicas pad one), with [model_serve]'s bounds where it applies
+    them: boxes within IoU 0.9 on >= 95 % of 39 rect scenes at
+    score_thresh 0.3, the blob keypoint within one heatmap cell; the
+    rows gathered on cuda:0; the FLOP probe counts the whole batch
+    either way."""
+    import numpy as np
+
+    from scanner_tpu_torch import models
+    from scanner_tpu_torch.common import DeviceType
+    from scanner_tpu_torch.graph.ops import KernelConfig
+    from scanner_tpu_torch.models import detect_train as dt
+    from scanner_tpu_torch.models import pose_train
+    from scanner_tpu_torch.models.detection import unpack_detections
+    kw = {}
+    if op == "ObjectDetect":
+        rng = np.random.RandomState(21)
+        frames = np.stack([dt.render_rect_scene(rng)[0]
+                           for _ in range(39)])
+        kw = {"score_thresh": 0.3}
+    else:
+        clips, _, _ = pose_train.synth_batch(np.random.RandomState(0), 2,
+                                             8, 48)
+        frames = clips.reshape(-1, 48, 48, 3)[:13]
+    first = torch.device("cuda", 0)
+
+    def build(devices):
+        return getattr(models, op)(
+            KernelConfig(device=DeviceType.TPU, devices=devices), width=8,
+            **kw)
+    one, dp = build([first]), build(_replica_devices())
+    x = torch.from_numpy(frames).to(first)
+    want, got = one.execute(x), dp.execute(x)
+    assert got.device == first and got.shape == want.shape
+    want, got = want.cpu().numpy(), got.cpu().numpy()
+    if op == "ObjectDetect":
+        assert dt.boxes_agree(want, got, unpack_detections) >= 0.95
+    else:
+        assert np.abs(got[:, 0, :2] - want[:, 0, :2]).max() <= 1.0
+    host = dp.execute(frames)
+    assert isinstance(host, np.ndarray) and host.shape == want.shape
+    assert one.infer_cost_flops(frames) == dp.infer_cost_flops(frames)
+
+
+def test_coordinator_worker_on_card_one_rank_nccl(card, tmp_path):
+    """A Worker(device="cuda:0", coordinator=...) joins a one-rank NCCL
+    group before it registers, serves a Histogram job with the CPU's
+    rows through the kernel, and leaves the group when stopped."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.parallel.distributed import (CoordinatorConfig,
+                                                        is_initialized)
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    frames = np.random.RandomState(6).randint(
+        0, 256, (40, 96, 128, 3)).astype(np.uint8)
+    want = cuda_ops.histogram_frames_plain(torch.from_numpy(frames)).numpy()
+    db = str(tmp_path / "db")
+    Database(PosixStorage(db)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    m = Master(db_path=db)
+    w = Worker(f"localhost:{m.port}", db_path=db, device="cuda:0",
+               coordinator=CoordinatorConfig(coord, 1, 0))
+    sc = st.Client(db_path=db, master=f"localhost:{m.port}")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert w.group_join_s > 0
+        before = cuda_ops.histogram_launches
+        src = sc.io.Input([st.NamedStream(sc, "frames")])
+        sc.run(sc.io.Output(sc.ops.Histogram(frame=src),
+                            [st.NamedStream(sc, "h")]),
+               st.PerfParams.manual(8, 16), show_progress=False)
+        assert cuda_ops.histogram_launches > before
+        got = np.stack(list(st.NamedStream(sc, "h").load()))
+        assert sc.shutdown_cluster() == 1
+    finally:
+        sc.stop()
+        w.stop()
+        m.stop()
+    assert not is_initialized() and not dist.is_initialized()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture()

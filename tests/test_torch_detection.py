@@ -227,12 +227,18 @@ def test_shipped_weights_localize_through_client(tmp_path, op, seed):
 
 
 def test_model_ops_refuse_several_devices():
+    """Several devices are replicas now: a batch is split over them,
+    padded and gathered back whole; a batch on a device that no replica
+    owns is refused, with one device or several."""
     from scanner_tpu_torch.models.infer import DataParallelApply
-    with pytest.raises(NotImplementedError, match="Queue A.7b"):
-        DataParallelApply(torch.nn.Identity(), ["cpu", "cpu"])
-    dp = DataParallelApply(torch.nn.Identity(), [])
-    with pytest.raises(ValueError, match="model on cpu"):
-        dp(torch.zeros(1, device="meta"))
+    x = torch.arange(5 * 3, dtype=torch.float32).reshape(5, 3)
+    dp = DataParallelApply(torch.nn.Identity(), ["cpu", "cpu"])
+    assert torch.equal(dp(x), x)
+    np.testing.assert_array_equal(dp(x.numpy()), x.numpy())
+    for devices in ([], ["cpu", "cpu"]):
+        dp = DataParallelApply(torch.nn.Identity(), devices)
+        with pytest.raises(ValueError, match="model on cpu"):
+            dp(torch.zeros(1, device="meta"))
 
 
 # FLOPs of one call (the MFU probe): the port counts with

@@ -262,13 +262,67 @@ def test_device_mesh_needs_a_group_of_the_layout_size():
         device_mesh(make_mesh({"dp": 2}, devices=["cpu"] * 2))
 
 
-def test_multi_card_entry_points_still_refuse():
-    """What needs several cards (ROADMAP A.7b(b)) raises, naming it."""
+def test_multi_card_entry_points_still_refuse(monkeypatch):
+    """What the multi-card entry points refuse: a Worker whose
+    coordinator never answers raises RendezvousError within the
+    rendezvous bound, with no thread started and no group left; a
+    DataParallelApply over several devices takes their batches and
+    refuses one on a device no replica owns."""
+    import socket
+    import threading
+    import time
+
     import torch
     from scanner_tpu_torch.engine.service import Worker
     from scanner_tpu_torch.models.infer import DataParallelApply
-    with pytest.raises(NotImplementedError, match=r"A\.7b\(b\)"):
-        Worker("localhost:1", db_path="unused", coordinator=object(),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.7b\(b\)"):
-        DataParallelApply(torch.nn.Linear(2, 2), ["cpu", "cpu"])
+    from scanner_tpu_torch.parallel import distributed
+    from scanner_tpu_torch.parallel.distributed import (
+        CoordinatorConfig, RendezvousError, is_initialized)
+    monkeypatch.setattr(distributed, "DEFAULT_INIT_TIMEOUT_S", 2.0)
+    with socket.socket() as s:     # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{s.getsockname()[1]}"
+    before = set(threading.enumerate())
+    t0 = time.time()
+    with pytest.raises(RendezvousError, match="init_process_group"):
+        Worker("localhost:1", db_path="unused", device="cpu",
+               coordinator=CoordinatorConfig(dead, 2, 1))
+    assert time.time() - t0 < 20
+    assert not is_initialized()
+    assert not (set(t for t in threading.enumerate() if t.is_alive())
+                - before)
+    dp = DataParallelApply(torch.nn.Linear(2, 2), ["cpu", "cpu"])
+    assert len(dp.replicas) == 2
+    assert dp(torch.zeros(3, 2)).shape == (3, 2)
+    with pytest.raises(ValueError, match="model on cpu"):
+        dp(torch.zeros(3, 2, device="meta"))
+
+
+def test_worker_that_fails_to_start_leaves_its_group(tmp_path, monkeypatch):
+    """A Worker(coordinator=) that joined its group and then failed to
+    start (its port taken) leaves the group, so that this process can
+    try again with another coordinator and fail the same way, not on
+    the group it kept."""
+    import socket
+
+    from scanner_tpu_torch.engine.service import Worker
+    from scanner_tpu_torch.parallel.distributed import (
+        CoordinatorConfig, is_initialized)
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    with socket.socket() as taken:
+        taken.bind(("0.0.0.0", 0))
+        taken.listen(1)
+        port = taken.getsockname()[1]
+        for _ in range(2):
+            # grpc raises where the port is taken
+            with pytest.raises(RuntimeError, match="bind"):
+                Worker("localhost:1", db_path=str(tmp_path), port=port,
+                       device="cpu", coordinator=CoordinatorConfig(
+                           f"127.0.0.1:{free_port()}", 1, 0))
+            assert not is_initialized()
