@@ -121,6 +121,25 @@ Phases, each printed on its own line; any failure exits non-zero:
                   histogram launches equal config 1's, its group nccl of
                   world size 1 with the join seconds, no child left.
                   Skipped with [cluster];
+     chaos        tools/torch_chaos_run.py --device cuda:N, its master
+                  and two worker processes sharing the card, for the
+                  memory-pressure plan (a host-to-card staging OOM in one
+                  worker; Histogram over a stored table of 24 seeded
+                  640 x 480 frames) and then worker-crash: each plan must
+                  fire, its rows be bit-exact to the clean run, no
+                  process of the tool's tree be left; the workers'
+                  histogram launches (each writes its count when shut
+                  down) must be > 0 for memory-pressure; the seconds of
+                  each run.  Skipped with [cluster];
+     tools        a Master here and a Worker(device="cuda:N") run config
+                  1 over the 600 frames, then tools/torch_top.py --once
+                  --json, tools/torch_trace.py --verify --json and
+                  tools/torch_cost.py --json as processes against it:
+                  each exits 0; top's document names the worker's node
+                  and the card with nonzero eval rows, trace's chains
+                  are complete, cost lists Histogram on the card; the
+                  rows equal [main_path]'s; the seconds of each call.
+                  Skipped with [cluster];
   7. pose_serve   PoseDetect(width=8) with the shipped weights over a
                   stored table of 48 x 48 blob frames through
                   Client(device="cuda"): mean localization error under
@@ -269,9 +288,10 @@ user's job takes.
 
 The line before the last is a JSON object {"kernels": [...]}; the
 histogram's `launches` counts config 1's run, [worker_task]'s,
-[cluster]'s, [gang]'s and [coordinator]'s runs (a gang member's
-launches, made in its child process, are folded into this process's
-count by its worker; [coordinator]'s child reports its own), and
+[cluster]'s, [gang]'s, [coordinator]'s, [chaos]'s and [tools]' runs (a
+gang member's launches, made in its child process, are folded into this
+process's count by its worker; [coordinator]'s child and [chaos]'s
+workers report their own), and
 the golden phase's card runs, fused and staged (a
 graph replay counts the launches the graph holds:
 cuda_ops.count_replay); the flash kernel's counts [pose_train]'s five
@@ -3205,6 +3225,197 @@ def coordinator_phase(st, frames, work: str, main_rows: dict,
     return out
 
 
+CHAOS_PLANS = ("memory-pressure", "worker-crash")
+CHAOS_ROWS = 24
+CHAOS_TIMEOUT_S = 300
+
+
+def chaos_phase(work: str) -> dict:
+    """[chaos]: tools/torch_chaos_run.py --device cuda:N (a master and
+    two worker processes sharing the card) for each of CHAOS_PLANS, one
+    after the other.  Each plan must fire and give rows bit-exact to its
+    clean run, with nothing of the tool's process tree left; the
+    memory-pressure workers must have launched the histogram kernel.
+    Returns the seconds of each run and the workers' launches."""
+    import torch
+    dev = f"cuda:{torch.cuda.current_device()}"
+    tool = os.path.join(HERE, "tools", "torch_chaos_run.py")
+    out = {"device": dev, "workers": 2, "rows": CHAOS_ROWS, "launches": 0}
+    set_subreaper(True)
+    try:
+        for plan in CHAOS_PLANS:
+            key = plan.replace("-", "_")
+            log_path = os.path.join(work, f"chaos_{key}.log")
+            since = int(time.clock_gettime(time.CLOCK_BOOTTIME)
+                        * os.sysconf("SC_CLK_TCK"))
+            t0 = time.time()
+            with open(log_path, "w") as log:
+                child = subprocess.Popen(
+                    [sys.executable, tool, plan, "--device", dev,
+                     "--workers", "2", "--rows", str(CHAOS_ROWS),
+                     "--db", os.path.join(work, f"chaos_{key}_db")],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=HERE)
+                seen = set()
+                while child.poll() is None \
+                        and time.time() - t0 < CHAOS_TIMEOUT_S:
+                    seen |= proc_descendants(child.pid)
+                    time.sleep(0.2)
+                if child.poll() is None:
+                    child.kill()
+                child.wait()
+            secs = time.time() - t0
+            end = time.time() + 10
+            while (left := processes_left(since, seen)) \
+                    and time.time() < end:
+                time.sleep(0.1)
+            for pid in left:
+                with contextlib.suppress(OSError):
+                    os.kill(pid, 9)
+                    os.waitpid(pid, 0)
+            with open(log_path) as fh:
+                text = fh.read()
+            check(child.returncode == 0,
+                  f"[chaos] {plan} exited {child.returncode}: "
+                  f"{text[-3000:]}")
+            res = json.loads(text.strip().splitlines()[-1])
+            check(res["fired"] and res["bit_exact"]
+                  and res["rows"] == CHAOS_ROWS,
+                  f"[chaos] {plan}: {res}")
+            check(not left and res["killed"] == 0,
+                  f"[chaos] {plan}: processes left {left}, killed by the "
+                  f"tool {res['killed']}")
+            out[f"{key}_s"] = round(secs, 3)
+            out[f"{key}_faulted_run_s"] = round(res["faulted_s"], 3)
+            out[f"{key}_clean_run_s"] = round(res["clean_s"], 3)
+            out[f"{key}_launches"] = res["worker_histogram_launches"]
+            out[f"{key}_processes"] = res["processes"]
+            out[f"{key}_descendants_seen"] = len(seen)
+            out["launches"] += res["worker_histogram_launches"]
+    finally:
+        set_subreaper(False)
+    check(out["memory_pressure_launches"] > 0,
+          "[chaos] memory-pressure: the workers never launched the "
+          "histogram kernel")
+    return out
+
+
+def tools_phase(st, frames, work: str, main_rows: dict, cuda_ops) -> dict:
+    """[tools]: a Master in this process and a Worker(device="cuda:N")
+    run config 1 over the main path's frames.  torch_top --once --json
+    and torch_cost --json run against the master before the run, and
+    torch_top, torch_trace --verify --json and torch_cost after it: each
+    tool a process of its own, the tools of a round at once.  The worker
+    shares this process's metrics registry with every earlier phase, so
+    the checks read what the tools report the run added: the worker's
+    eval rows, its tasks on the card and the Histogram rows on it."""
+    import torch
+    from scanner_tpu_torch.engine.service import Master, Worker
+    from scanner_tpu_torch.storage import Database, PosixStorage
+    db_path = os.path.join(work, "tools_db")
+    Database(PosixStorage(db_path)).new_table(
+        "frames", ["frame"], [[f] for f in frames],
+        codecs={"frame": "pickle"})
+    dev = f"cuda:{torch.cuda.current_device()}"
+    master = Master(db_path=db_path, advertise_host="127.0.0.1")
+    addr = f"127.0.0.1:{master.port}"
+    worker = Worker(addr, db_path=db_path, device=dev,
+                    advertise_host="127.0.0.1")
+    client = st.Client(db_path=db_path, master=addr)
+    out = {"device": dev}
+
+    def tools(*runs):
+        """Run each (name, args) of `runs` at once, each a process of
+        its own; {name: (its --json document, its seconds)}."""
+        procs = {}
+        for name, args in runs:
+            procs[name] = (time.time(), subprocess.Popen(
+                [sys.executable,
+                 os.path.join(HERE, "tools", f"torch_{name}.py"),
+                 "--master", addr, *args],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=HERE))
+        docs = {}
+        try:
+            for name, (t0, p) in procs.items():
+                so, se = p.communicate(timeout=120)
+                check(p.returncode == 0,
+                      f"[tools] torch_{name}.py exited {p.returncode}: "
+                      f"{se[-2000:]}")
+                docs[name] = (json.loads(so), round(time.time() - t0, 3))
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        return docs
+
+    def totals(top, cost):
+        """The workers' (names, eval rows, tasks on `dev`, Histogram
+        rows on `dev`) as top and cost report them."""
+        workers = {n: d for n, d in top["nodes"].items()
+                   if n.startswith("worker")}
+        hist = sum(o["rows"] for n, rep in cost["nodes"].items()
+                   if n.startswith("worker")
+                   for o in (rep or {}).get("op_efficiency") or []
+                   if o["op"] == "Histogram" and o["device"] == dev)
+        return (sorted(workers),
+                sum(d["eval_rows"] for d in workers.values()),
+                sum(d["devices"].get(dev, {}).get("tasks", 0.0)
+                    for d in workers.values()), hist)
+    try:
+        deadline = time.time() + 60
+        while client.job_status()["num_workers"] < 1:
+            check(time.time() < deadline,
+                  "[tools] the worker never registered")
+            time.sleep(0.1)
+        docs = tools(("top", ["--once", "--json"]), ("cost", ["--json"]))
+        out.update(top_before_s=docs["top"][1],
+                   cost_before_s=docs["cost"][1])
+        names0, rows0, tasks0, hist0 = totals(docs["top"][0],
+                                              docs["cost"][0])
+        check(len(names0) == 1,
+              f"[tools] torch_top before the run names workers {names0}")
+        cuda_ops.reset_counts()
+        wall, _ = run_config(client, st, 1, "tools1")
+        out["launches"] = cuda_ops.histogram_launches
+        rows = stored_items(client._db, "tools1")
+        check(len(rows) == len(frames) and same_bytes(rows, main_rows[1]),
+              "[tools] config 1 rows differ from the main path's")
+        out.update(config1_fps=round(len(frames) / wall, 3),
+                   rows_identical_to_main_path=True)
+        docs = tools(("top", ["--once", "--json"]),
+                     ("trace", ["--verify", "--json"]), ("cost", ["--json"]))
+        out.update({f"{n}_s": d[1] for n, d in docs.items()})
+        (top, _), (trace, _), (cost, _) = (docs[n] for n in
+                                           ("top", "trace", "cost"))
+        names, rows1, tasks1, hist1 = totals(top, cost)
+        out.update(top_eval_rows_added=rows1 - rows0,
+                   top_tasks_added=tasks1 - tasks0,
+                   cost_histogram_rows_added=hist1 - hist0)
+        check(names == names0 and rows1 - rows0 >= len(frames)
+              and tasks1 - tasks0 > 0,
+              f"[tools] torch_top: worker {names0} -> {names}, eval rows "
+              f"+{rows1 - rows0} (want >= {len(frames)}), tasks on {dev} "
+              f"+{tasks1 - tasks0}")
+        # the roofline ledger times a sample of the calls
+        check(hist1 - hist0 > 0,
+              f"[tools] torch_cost: no Histogram rows added on {dev}")
+        check(trace["complete"] and trace["tasks"] > 0,
+              f"[tools] torch_trace --verify: {trace}")
+        out["trace_tasks"] = trace["tasks"]
+        ledger = [e for rep in cost["nodes"].values()
+                  for e in (rep or {}).get("ledger") or []]
+        out["cost_ledger_kinds"] = json.dumps(sorted(
+            {k for e in ledger for k in e.get("kinds") or []}))
+        check(client.shutdown_cluster() == 1,
+              "[tools] shutdown_cluster did not reach the worker")
+    finally:
+        client.stop()
+        worker.stop()
+        master.stop()
+    return out
+
+
 def hist_cases(g):
     """(what, uint8 frames, bins) that [kernel] holds the histogram
     kernel to its plain version on: the main path's shape, the batch
@@ -3509,10 +3720,17 @@ def main() -> int:
             phase("coordinator", ran=True, **co,
                   main_path_config1_fps=round(args.frames / secs[1], 3),
                   card=repr(card))
+            # -- the chaos tool's drills, then the operator tools -------
+            ch = chaos_phase(work)
+            cluster_launches += ch["launches"]
+            phase("chaos", ran=True, **ch, card=repr(card))
+            tl = tools_phase(st, frames, work, main_rows, cuda_ops)
+            cluster_launches += tl["launches"]
+            phase("tools", ran=True, **tl, card=repr(card))
         else:
-            phase("cluster", ran=False, reason="no-grpcio")
-            phase("gang", ran=False, reason="no-grpcio")
-            phase("coordinator", ran=False, reason="no-grpcio")
+            for name in ("cluster", "gang", "coordinator", "chaos",
+                         "tools"):
+                phase(name, ran=False, reason="no-grpcio")
 
         # -- the pose model: serve, then train ------------------------
         phase("pose_serve", **pose_serve(st, work, args.seed))

@@ -130,7 +130,7 @@ def resolve_device(device: Any = "cuda") -> torch.device:
                 f"device {device!r} requested but no CUDA card is "
                 f"available (pass device='cpu' to run on the host)")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            dev = torch.device("cuda", torch.cuda.current_device())  # scanner-check: disable=SC106 the one place the caller's index-less "cuda" becomes a card; everything downstream takes this device
         elif dev.index >= torch.cuda.device_count():
             raise ScannerException(
                 f"device {device!r}: only {torch.cuda.device_count()} "

@@ -223,9 +223,14 @@ class Resize(Kernel):
                               bytes_in=float(b * h * w * c),
                               bytes_out=float(out_px))
 
+    def execute_traced(self, frame):
+        """Tensor in, tensor out, where the tensor lies: the body a
+        fused chain runs and captures (engine/evaluate.py)."""
+        return resize(frame, self.height, self.width)
+
     def execute(self, frame: Sequence[FrameType]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
-        out = resize(x, self.height, self.width)
+        out = self.execute_traced(x)
         return out.numpy() if on_host else out
 
 
@@ -315,6 +320,11 @@ class CropResize(Kernel):
                               bytes_in=float(b * h * w * c + b * 4 * 4),
                               bytes_out=float(out_px))
 
+    def execute_traced(self, frame, box):
+        """Frames and (B, 4) float32 boxes in, crops out, on the
+        frames' device."""
+        return crop_resize(frame, box, self.height, self.width)
+
     def execute(self, frame: Sequence[FrameType],
                 box: Sequence[Any]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
@@ -326,7 +336,7 @@ class CropResize(Kernel):
         if boxes.device != x.device:
             raise ValueError(f"boxes on {boxes.device}, frames on "
                              f"{x.device}")
-        out = crop_resize(x, boxes, self.height, self.width)
+        out = self.execute_traced(x, boxes)
         return out.numpy() if on_host else out
 
 
@@ -379,9 +389,14 @@ class Blur(Kernel):
         return CostDescriptor(flops=float(px * 4 * self.ksize),
                               bytes_in=float(px), bytes_out=float(px))
 
+    def execute_traced(self, frame):
+        """Tensor in, tensor out, where the tensor lies: the body a
+        fused chain runs and captures (engine/evaluate.py)."""
+        return blur(frame, self.kern)
+
     def execute(self, frame: Sequence[FrameType]) -> Sequence[FrameType]:
         x, on_host = _as_tensor(frame)
-        out = blur(x, self.kern)
+        out = self.execute_traced(x)
         return out.numpy() if on_host else out
 
 
@@ -459,11 +474,17 @@ class OpticalFlow(Kernel):
                               bytes_in=float(b * win * h * w * c),
                               bytes_out=float(px * 2 * 4))
 
+    def execute_traced(self, frame):
+        """(b, 2, H, W, C) stencil windows in, (b, H, W, 2) float32 flow
+        out, where the tensor lies: the body a fused chain runs and
+        captures (engine/evaluate.py)."""
+        return horn_schunck(_grayscale(frame[:, 0]), _grayscale(frame[:, 1]))
+
     def execute(self, frame: Sequence[Sequence[FrameType]]
                 ) -> Sequence[FrameType]:
         from ..engine.batch import is_array_data
         if not is_array_data(frame):
             frame = np.stack([np.stack([w[0], w[1]]) for w in frame])
         x, on_host = _as_tensor(frame)
-        out = horn_schunck(_grayscale(x[:, 0]), _grayscale(x[:, 1]))
+        out = self.execute_traced(x)
         return out.numpy() if on_host else out

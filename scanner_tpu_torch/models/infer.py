@@ -47,10 +47,10 @@ def lowered_flops(fn, *args) -> Optional[float]:
 
 
 def _device(d: Any) -> torch.device:
-    dev = torch.device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    """A replica's device, resolved as a client's is: "cuda" becomes the
+    current card, and a card that is not there raises."""
+    from ..engine.evaluate import resolve_device
+    return resolve_device(d)
 
 
 def _on(dev: torch.device):

@@ -61,8 +61,19 @@ atexit.register(_cleanup_auto_dirs)
 DEVICE_PID_BASE = 1000
 # the record_function marker opened at the host's t0 (alignment anchor)
 ANCHOR = "scanner_tpu_devtrace_t0"
-# embed_device_events keeps at most this many events of one capture
+# embed_device_events keeps at most this many events of one capture,
+# unless SCANNER_TPU_DEVTRACE_MAX_EVENTS says otherwise
 _MAX_EVENTS = 200000
+
+
+def _devtrace_event_cap() -> int:
+    """SCANNER_TPU_DEVTRACE_MAX_EVENTS, read at each capture; unset,
+    empty or unparsable gives _MAX_EVENTS (the JAX package's rule)."""
+    try:
+        return int(os.environ.get("SCANNER_TPU_DEVTRACE_MAX_EVENTS",
+                                  str(_MAX_EVENTS)) or _MAX_EVENTS)
+    except ValueError:
+        return _MAX_EVENTS
 
 
 @contextlib.contextmanager
@@ -164,12 +175,13 @@ def embed_device_events(rec: Dict[str, Any],
                         ) -> Dict[str, Any]:
     """Serialize the capture's device events INTO the record (mutates
     and returns it) so the profile survives crossing hosts.  Bounded by
-    `max_events` (default _MAX_EVENTS, longest-first truncation recorded
-    in ``events_dropped``)."""
+    `max_events` (default SCANNER_TPU_DEVTRACE_MAX_EVENTS, else
+    _MAX_EVENTS; longest-first truncation recorded in
+    ``events_dropped``)."""
     if "events" in rec:
         return rec
     evs = _read_raw_events(rec)
-    cap = _MAX_EVENTS if max_events is None else max_events
+    cap = _devtrace_event_cap() if max_events is None else max_events
     # Chrome 'M' metadata (process/thread names) and the alignment
     # anchor are exempt from the cap: without them the lanes render as
     # bare numbers and nothing can be aligned

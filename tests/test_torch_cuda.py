@@ -19,7 +19,10 @@ under deterministic cuDNN; the first within rel 1e-3 of the unsharded
 step) and its DCP resume bit for bit.  And several cards: the model ops
 over DataParallelApply's replicas (every card, or two on one) against one
 card within the model bounds, and a Worker(coordinator=) on a one-rank
-NCCL group for its lifetime.  Marked `cuda`: they need an NVIDIA card with nvcc
+NCCL group for its lifetime.  And the chaos tool's memory-pressure drill
+(tools/torch_chaos_run.py --device cuda): two worker processes on the
+card, the staging fault fires, the rows are bit-exact to the clean run
+and the workers launched the histogram kernel.  Marked `cuda`: they need an NVIDIA card with nvcc
 (sm_90a) and skip elsewhere — except the check that a worker asked for
 a card without one raises, which hides the card and runs everywhere.  Run on the card with
 
@@ -886,3 +889,25 @@ def test_sharded_step_remat_and_resume_on_card(one_rank_mesh, tmp_path):
     assert runs[True] == runs[False] and runs[False][-1] < runs[False][0]
     assert abs(runs[False][0] - first) <= 1e-3 * abs(first)
     assert got == want
+
+
+def test_chaos_memory_pressure_on_the_card(card, tmp_path):
+    """memory-pressure through the chaos tool: a host-to-card staging
+    OOM in one of two worker processes on the card is reported,
+    requeued strike-free and completed bit-exact; the workers' histogram
+    kernel ran; no process is left to kill."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools", "torch_chaos_run.py"),
+         "memory-pressure", "--device", "cuda", "--rows", "16",
+         "--db", str(tmp_path / "db")],
+        capture_output=True, text=True, timeout=600, cwd=repo)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["fired"] and res["bit_exact"] and res["rows"] == 16
+    assert res["worker_histogram_launches"] > 0
+    assert res["killed"] == 0

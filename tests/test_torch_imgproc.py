@@ -125,6 +125,35 @@ def test_optical_flow_matches_jax():
         jnp.asarray(base))), rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["Resize", "CropResize", "Blur",
+                                  "OpticalFlow"])
+def test_fused_body_is_the_kernels_own_execute_traced(name):
+    """Each fusable kernel has an execute_traced of its own: the tensor
+    core that a fused chain runs and captures, free of execute()'s host
+    conversions, giving execute()'s values on a tensor."""
+    cls = getattr(timg, name)
+    assert "execute_traced" in vars(cls)
+    f = _frames(4, 40, 56, 3)
+    args = {}
+    if name == "Resize":
+        k = cls(CPU_T, width=24, height=20)
+    elif name == "CropResize":
+        k = cls(CPU_T, size=16)
+        args["box"] = np.asarray([[0.0, 0.0, 0.5, 0.5], [0.1, 0.2, 0.9,
+                                  0.7], [0.0, 0.0, 1.0, 1.0],
+                                  [0.3, 0.3, 0.35, 0.4]], np.float32)
+    elif name == "Blur":
+        k = cls(CPU_T, kernel_size=5, sigma=1.1)
+    else:
+        k = cls(CPU_T)
+        f = np.stack([f, np.roll(f, (1, 2), axis=(1, 2))], axis=1)
+    want = k.execute(f, *args.values())
+    got = k.execute_traced(torch.from_numpy(f), *(
+        torch.from_numpy(a) for a in args.values()))
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_grayscale_and_codecs_match_jax():
     f = _frames(1, 24, 32, 3)[0]
     np.testing.assert_array_equal(timage.Grayscale(CPU_T).execute(f),

@@ -1,5 +1,7 @@
-"""The port stands alone: scanner_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package (scanner_tpu), every relative import of
+"""The port stands alone: scanner_tpu_torch, its tools (tools/torch_*.py),
+the chaos tool's spawn helpers (tests/torch_spawn_*.py) and
+chip_smoke.py import neither jax nor the JAX package (scanner_tpu),
+every relative import of
 the port resolves inside it (the gang's parallel/ modules and its
 member child included), and asking for a card that is not there raises
 instead of carrying on on the CPU."""
@@ -22,6 +24,9 @@ def _port_files():
     tools = os.path.join(REPO, "tools")
     out += [os.path.join(tools, f) for f in os.listdir(tools)
             if f.startswith("torch_") and f.endswith(".py")]
+    here = os.path.join(REPO, "tests")
+    out += [os.path.join(here, f) for f in os.listdir(here)
+            if f.startswith("torch_spawn_") and f.endswith(".py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -117,6 +122,25 @@ def test_cluster_modules_import_with_jax_blocked():
     assert r.stdout.strip() == "[]"
 
 
+def test_analysis_and_spawn_helpers_import_with_jax_blocked():
+    """The port's analysis suite and the chaos tool's spawn helpers
+    import with jax and the JAX package absent (the analysis is pure
+    `ast`, like the JAX package's, but the port keeps its own copy)."""
+    code = ("import sys, runpy; sys.modules['jax'] = None; "
+            "sys.modules['scanner_tpu'] = None; "
+            "sys.path.insert(0, 'tests'); "
+            "import scanner_tpu_torch.analysis.static, "
+            "scanner_tpu_torch.analysis.model, torch_spawn_master, "
+            "torch_spawn_worker; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'scanner_tpu') "
+            "and sys.modules[m] is not None))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 GANG_MODULES = ["parallel.distributed", "parallel.mesh", "parallel.halo",
                 "engine.gang"]
 
@@ -201,6 +225,20 @@ def test_cuda_client_raises_without_card(tmp_path, monkeypatch):
     with pytest.raises(st.ScannerException, match="no CUDA card"):
         st.Client(db_path=str(tmp_path / "db"), device="cuda:0")
     st.Client(db_path=str(tmp_path / "db"), device="cpu")
+
+
+def test_replicas_resolve_their_devices_as_a_client_does(monkeypatch):
+    """DataParallelApply's devices go through resolve_device: "cuda"
+    without a card raises the client's error, not whatever
+    torch.cuda.current_device() does without one."""
+    import scanner_tpu_torch as st
+    from scanner_tpu_torch.models.infer import DataParallelApply
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in ("cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(st.ScannerException, match="no CUDA card"):
+            DataParallelApply(torch.nn.Linear(2, 2), [dev])
+    dp = DataParallelApply(torch.nn.Linear(2, 2), ["cpu", "cpu"])
+    assert dp.devices == [torch.device("cpu")] * 2
 
 
 def test_kernel_wrapper_refuses_other_devices():

@@ -219,3 +219,35 @@ def test_embedded_events_survive_without_the_file(tmp_path):
     assert np.isclose(
         next(e["ts"] for e in got if e.get("name") == torchprof.ANCHOR),
         rec["t0"] * 1e6)
+
+
+@pytest.mark.parametrize("value", [None, "7", "", "junk"])
+def test_devtrace_event_cap_follows_the_jax_rule(monkeypatch, value):
+    """SCANNER_TPU_DEVTRACE_MAX_EVENTS caps the port's embedded device
+    events as it caps the JAX package's: unset, empty or unparsable
+    gives 200000."""
+    from scanner_tpu.util import jaxprof
+    if value is None:
+        monkeypatch.delenv("SCANNER_TPU_DEVTRACE_MAX_EVENTS", raising=False)
+    else:
+        monkeypatch.setenv("SCANNER_TPU_DEVTRACE_MAX_EVENTS", value)
+    assert torchprof._devtrace_event_cap() \
+        == jaxprof._devtrace_event_cap() \
+        == (7 if value == "7" else 200000)
+
+
+def test_devtrace_event_cap_truncates_longest_first(monkeypatch, tmp_path):
+    evs = [{"ph": "X", "name": f"k{i}", "dur": float(i), "pid": 0}
+           for i in range(10)]
+    meta = [{"ph": "M", "name": "process_name", "pid": 0},
+            {"ph": "i", "name": torchprof.ANCHOR, "pid": 0}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": meta + evs}))
+    monkeypatch.setenv("SCANNER_TPU_DEVTRACE_MAX_EVENTS", "3")
+    rec = torchprof.embed_device_events({"path": str(path)})
+    assert rec["events_dropped"] == 7
+    assert rec["events"][:2] == meta
+    assert [e["name"] for e in rec["events"][2:]] == ["k9", "k8", "k7"]
+    # an explicit max_events still wins over the environment
+    rec = torchprof.embed_device_events({"path": str(path)}, max_events=5)
+    assert rec["events_dropped"] == 5
