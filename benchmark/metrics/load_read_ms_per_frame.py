@@ -1,0 +1,11 @@
+"""storage: the profile's `load:read` span seconds (the stored rows
+read, inside each `load` span, or inside `evaluate` where a state-carry
+miss reloads a task), summed over the window's jobs, per frame those
+jobs completed, in ms."""
+
+SPAN = "load:read"
+
+
+def read(rec):
+    secs = sum(j.stats[SPAN]["total_s"] for j in rec.jobs if SPAN in j.stats)
+    return 1e3 * secs / rec.frames if secs and rec.frames else None

@@ -11,6 +11,7 @@ the tasks.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -373,6 +374,7 @@ class Client:
         """Execute a job set — on this client's device, or on the
         cluster's workers in cluster mode; returns a job id usable with
         get_profile and trace."""
+        started_at = time.time()
         if isinstance(outputs, O.OpNode):
             outputs = [outputs]
         perf = perf_params or PerfParams.estimate()
@@ -430,7 +432,7 @@ class Client:
                     perf.pipeline_instances_per_node
                     or self._pipeline_instances_arg, self.device)))
         ex.run(outputs, perf, cache_mode=cache_mode,
-               show_progress=show_progress)
+               show_progress=show_progress, started_at=started_at)
         self._job_profiles[job_id] = [prof]
         self._job_traces[job_id] = {"trace_id": ex.last_trace_id,
                                     "bulk_id": None}

@@ -577,7 +577,32 @@ class LocalExecutor:
 
     def run(self, outputs: Sequence[O.OpNode], perf: PerfParams,
             cache_mode: CacheMode = CacheMode.Error,
-            show_progress: bool = False) -> List[JobContext]:
+            show_progress: bool = False,
+            started_at: Optional[float] = None) -> List[JobContext]:
+        """Run a job set to its committed tables.  `started_at` is when
+        the caller's set-up began (the local Client.run's entry), by
+        default now; the job's root trace span starts then too.  The
+        profiler records the phases `job.setup` (from `started_at` until
+        the stage threads start), `pipeline.drain` (run_pipeline) and
+        `job.commit` (the table commit, the sinks' `finished` and
+        `write_megafile`)."""
+        started_at = time.time() if started_at is None else started_at
+        # the job's root trace span: every task span and phase of this
+        # run chains up to it under one trace_id (Client.trace
+        # assembles the tree)
+        root = _tr.open_span(self.tracer, "job")
+        if root is not None:
+            root.start = started_at
+        self.last_trace_id = root.trace_id if root is not None else None
+        try:
+            with _tr.use_span(self.tracer, root):
+                return self._run(outputs, perf, cache_mode, show_progress,
+                                 root, started_at)
+        finally:
+            _tr.close_span(self.tracer, root)
+
+    def _run(self, outputs, perf, cache_mode, show_progress, root,
+             started_at) -> List[JobContext]:
         info, jobs = self.prepare(outputs, perf, cache_mode)
         self.setup_chains(info, jobs, perf)
         self._stream_opt = bool(getattr(perf, "stream_work_packets", True))
@@ -587,27 +612,28 @@ class LocalExecutor:
                 for t, rng in enumerate(job.tasks)]
         _log.info("job set prepared: %d jobs (%d skipped), %d tasks",
                   len(jobs), sum(1 for j in jobs if j.skipped), len(work))
-        # the job's root trace span: every task span of this run chains
-        # up to it under one trace_id (Client.trace assembles the tree)
-        root = _tr.open_span(self.tracer, "job",
-                             tasks=len(work), jobs=len(jobs))
-        self.last_trace_id = root.trace_id if root is not None else None
         now = time.time()
+        if root is not None:
+            root.attrs = {**(root.attrs or {}), "tasks": len(work),
+                          "jobs": len(jobs)}
         for w in work:
             if root is not None:
                 w.trace_ctx = root.context()
             w.enqueued_at = now
-        try:
-            if work:
-                # level >= 2: capture the card's timeline around the job
-                # (merged into Profile.write_trace output)
-                with device_trace(self.profiler):
-                    self._run_pipeline(
-                        info, work, show_progress,
-                        queue_size=int(perf.queue_size_per_pipeline),
-                        precompile=self.precompile_hint(jobs))
-        finally:
-            _tr.close_span(self.tracer, root)
+        if work:
+            # level >= 2: capture the card's timeline around the job
+            # (merged into Profile.write_trace output)
+            with device_trace(self.profiler):
+                self._run_pipeline(
+                    info, work, show_progress,
+                    queue_size=int(perf.queue_size_per_pipeline),
+                    precompile=self.precompile_hint(jobs),
+                    setup_from=started_at)
+        else:
+            self.profiler.add_phase("job.setup", started_at, time.time())
+        # after the device capture's teardown (level >= 2), which is
+        # no part of the commit
+        ended = time.time()
         for job in jobs:
             if job.skipped:
                 continue
@@ -617,6 +643,7 @@ class LocalExecutor:
                 # durability barrier (reference Sink::finished)
                 stream.storage.finished(stream, job.jr.output_rows)
         self.db.write_megafile()
+        self.profiler.add_phase("job.commit", ended, time.time())
         return jobs
 
     @staticmethod
@@ -639,8 +666,8 @@ class LocalExecutor:
     def _run_pipeline(self, info: A.GraphInfo, work: List[TaskItem],
                       show_progress: bool,
                       queue_size: Optional[int] = None,
-                      precompile: Optional[Tuple[int, int, int]] = None
-                      ) -> None:
+                      precompile: Optional[Tuple[int, int, int]] = None,
+                      setup_from: Optional[float] = None) -> None:
         pending = list(work)
         src_lock = threading.Lock()
 
@@ -650,7 +677,8 @@ class LocalExecutor:
 
         done = self.run_pipeline(info, source, show_progress=show_progress,
                                  total=len(work), queue_size=queue_size,
-                                 precompile=precompile)
+                                 precompile=precompile,
+                                 setup_from=setup_from)
         if done != len(work):
             raise JobException(
                 f"pipeline finished {done}/{len(work)} tasks")
@@ -661,8 +689,8 @@ class LocalExecutor:
                      evaluator_factory=None, close_evaluators: bool = True,
                      queue_size: Optional[int] = None,
                      show_progress: bool = False, total: int = 0,
-                     precompile: Optional[Tuple[int, int, int]] = None
-                     ) -> int:
+                     precompile: Optional[Tuple[int, int, int]] = None,
+                     setup_from: Optional[float] = None) -> int:
         """Multi-stage streaming pipeline (reference worker.cpp:1467-1724
         load/evaluate/save stage loops): N loaders pull TaskItems from
         `source` and decode, P evaluator instances execute, S savers
@@ -670,7 +698,10 @@ class LocalExecutor:
         cluster worker (source = master NextWork pull), so a cluster worker
         keeps every stage of the node busy instead of running one task at a
         time.  `precompile` is the evaluators' ladder warm-up hint
-        (precompile_hint).
+        (precompile_hint).  With `setup_from` the profiler records the
+        phase `job.setup` from then until the stage threads start; it
+        always records `pipeline.drain`, from the last task's save
+        until every stage thread has ended.
 
         source() -> TaskItem | "wait" (retry shortly) | None (exhausted);
         called concurrently from loader threads.
@@ -703,7 +734,8 @@ class LocalExecutor:
             return self._run_serial(info, source, on_start, on_done,
                                     on_eval_done, on_task_error,
                                     evaluator_factory, close_evaluators,
-                                    show_progress, total, precompile)
+                                    show_progress, total, precompile,
+                                    setup_from)
         qsize = queue_size or 4
         # stateful affinity: kernel state lives in ONE instance's kernels,
         # so a chained run serializes evaluation (the reference pins a
@@ -931,6 +963,7 @@ class LocalExecutor:
                     te.close()
 
         done_count = [0]
+        last_done: List[Optional[float]] = [None]
         done_lock = threading.Lock()
 
         def saver():
@@ -964,6 +997,7 @@ class LocalExecutor:
                         continue
                     with done_lock:
                         done_count[0] += 1
+                        last_done[0] = time.time()
                         if show_progress:
                             print(f"\rtasks {done_count[0]}/{total}",
                                   end="", flush=True)
@@ -982,6 +1016,11 @@ class LocalExecutor:
         savers = [threading.Thread(target=saver, name=f"save-{i}")
                   for i in range(self.num_save_workers)]
         try:
+            # set-up ends as the stage threads start, so that it never
+            # overlaps a stage span
+            if setup_from is not None:
+                self.profiler.add_phase("job.setup", setup_from,
+                                        time.time())
             for t in loaders + evals + savers:
                 t.start()
             for t in loaders:
@@ -992,6 +1031,9 @@ class LocalExecutor:
             evals_done.set()
             for t in savers:
                 t.join()
+            if last_done[0] is not None:
+                self.profiler.add_phase("pipeline.drain", last_done[0],
+                                        time.time())
         finally:
             # detach the depth gauges from this run's (now dead) queues —
             # but only if this run still owns them: a concurrent pipeline
@@ -1010,12 +1052,17 @@ class LocalExecutor:
                     on_eval_done, on_task_error, evaluator_factory,
                     close_evaluators: bool, show_progress: bool,
                     total: int,
-                    precompile: Optional[Tuple[int, int, int]] = None
-                    ) -> int:
+                    precompile: Optional[Tuple[int, int, int]] = None,
+                    setup_from: Optional[float] = None) -> int:
         """The NO_PIPELINING path: every stage inline on this thread,
         through the same evaluator (fused chains, staging, buckets) and
-        the same load/save code as the threaded pipeline."""
+        the same load/save code as the threaded pipeline.  Its phases:
+        `job.setup` ends where the threaded path starts its stage
+        threads, `pipeline.drain` runs from the last save to the
+        return."""
         import types
+        if setup_from is not None:
+            self.profiler.add_phase("job.setup", setup_from, time.time())
         tls = types.SimpleNamespace()
         fb_tls = types.SimpleNamespace()  # carry-miss fallback decoders
         if evaluator_factory is not None:
@@ -1103,6 +1150,7 @@ class LocalExecutor:
                         continue
                     raise
                 done += 1
+                last_done = time.time()
                 if show_progress:
                     print(f"\rtasks {done}/{total}", end="", flush=True)
         finally:
@@ -1111,6 +1159,8 @@ class LocalExecutor:
                     auto.close()
             if close_evaluators:
                 te.close()
+        if done:
+            self.profiler.add_phase("pipeline.drain", last_done, time.time())
         if show_progress:
             print()
         return done
@@ -1221,6 +1271,7 @@ class LocalExecutor:
             self._keep_from = list(reversed(suffix))  # per chunk index
             self._chunk_i = 0
             self._buf: Dict[int, Any] = {}
+            self._profiler = ex.profiler
 
             # decode in slices matched to the chunk row count so peak
             # scratch/buffer is ~one work packet, not a fixed constant
@@ -1279,20 +1330,22 @@ class LocalExecutor:
                     - self._buf.keys()
             t0 = time.time()
             decoded = 0
-            while need:
-                rr, fr = next(self._gen)  # StopIteration = decode bug
-                for r, f in zip(rr.tolist(), fr):
-                    self._buf[r] = f
-                decoded += len(fr)
-                need -= set(rr.tolist())
-            if decoded:
-                lbl = threading.current_thread().name
-                _M_DECODED.labels(loader=lbl).inc(decoded)
-                _M_DECODE_SECONDS.labels(loader=lbl).inc(time.time() - t0)
-            if self._plan is None:
-                data = np.stack([self._buf[int(r)] for r in rows_arr]) \
-                    if len(rows_arr) else np.zeros((0,), np.uint8)
-            else:
+            with self._profiler.span("load:decode", rows=len(need)):
+                while need:
+                    rr, fr = next(self._gen)  # StopIteration = decode bug
+                    for r, f in zip(rr.tolist(), fr):
+                        self._buf[r] = f
+                    decoded += len(fr)
+                    need -= set(rr.tolist())
+                if decoded:
+                    lbl = threading.current_thread().name
+                    _M_DECODED.labels(loader=lbl).inc(decoded)
+                    _M_DECODE_SECONDS.labels(loader=lbl).inc(
+                        time.time() - t0)
+                if self._plan is None:
+                    data = np.stack([self._buf[int(r)] for r in rows_arr]) \
+                        if len(rows_arr) else np.zeros((0,), np.uint8)
+            if self._plan is not None:
                 # page-gather assembly: fresh (miss) rows of this chunk
                 # feed page completion and stage once; resident rows
                 # gather from the pinned pages on this task's device
@@ -1583,11 +1636,16 @@ class LocalExecutor:
         if not self.stage:
             return
         cols = w.elements if elements is None else elements
-        for nid, b in cols.items():
-            if self._column_device_bound(info, nid) \
-                    and isinstance(b.data, np.ndarray) \
-                    and b.data.dtype != object:
-                cols[nid] = b.to_device(w.device)
+        staged = [nid for nid, b in cols.items()
+                  if self._column_device_bound(info, nid)
+                  and isinstance(b.data, np.ndarray)
+                  and b.data.dtype != object]
+        if not staged:
+            return
+        with self.profiler.span(
+                "load:stage", bytes=sum(cols[n].data.nbytes for n in staged)):
+            for nid in staged:
+                cols[nid] = cols[nid].to_device(w.device)
 
     def _yuv_device_wire(self, info: A.GraphInfo, node_id: int) -> bool:
         """Should this video column decode to YUV420 wire format?  Yes
@@ -1671,7 +1729,8 @@ class LocalExecutor:
                     auto = self._automata(tls, w.job, node_id, si, it,
                                           output_format=fmt)
                     t0 = time.time()
-                    frames = auto.get_frames(local)
+                    with self.profiler.span("load:decode", rows=len(local)):
+                        frames = auto.get_frames(local)
                     lbl = threading.current_thread().name
                     _M_DECODED.labels(loader=lbl).inc(len(local))
                     _M_DECODE_SECONDS.labels(loader=lbl).inc(
@@ -1693,17 +1752,23 @@ class LocalExecutor:
         (shared by the whole-task and per-chunk streaming loaders)."""
         si = w.job.source_info[node_id]
         rows_arr = np.asarray(rows_l, np.int64)
+        n = len(rows_l)
         if "custom" in si:
-            vals = si["custom"].storage.read_rows(si["custom"], rows_l)
-            return ColumnBatch.from_elements(rows_arr, vals)
+            with self.profiler.span("load:read", rows=n):
+                vals = si["custom"].storage.read_rows(si["custom"], rows_l)
+            with self.profiler.span("load:decode", rows=n):
+                return ColumnBatch.from_elements(rows_arr, vals)
         from ..storage.streams import decode_element
         desc = si["table"]
-        vals = list(self.db.load_column(
-            desc.id, si["column"], rows=rows_l,
-            sparsity_threshold=w.job.sparsity_threshold))
+        with self.profiler.span("load:read", rows=n) as sp:
+            vals = list(self.db.load_column(
+                desc.id, si["column"], rows=rows_l,
+                sparsity_threshold=w.job.sparsity_threshold))
+            sp.set_args(bytes=sum(len(v) for v in vals if v is not None))
         codec = si.get("codec", "raw")
-        return ColumnBatch.from_elements(
-            rows_arr, [decode_element(v, codec) for v in vals])
+        with self.profiler.span("load:decode", rows=n):
+            return ColumnBatch.from_elements(
+                rows_arr, [decode_element(v, codec) for v in vals])
 
     def _cache_eligible(self, info: A.GraphInfo, node_id: int) -> bool:
         """Frame-cache eligibility for one video column: the cache holds
@@ -1756,7 +1821,8 @@ class LocalExecutor:
             auto = self._automata(tls, w.job, node_id, si, item,
                                   output_format=fmt)
             t0 = time.time()
-            frames = auto.get_frames(miss.tolist())
+            with self.profiler.span("load:decode", rows=len(miss)):
+                frames = auto.get_frames(miss.tolist())
             lbl = threading.current_thread().name
             _M_DECODED.labels(loader=lbl).inc(len(miss))
             _M_DECODE_SECONDS.labels(loader=lbl).inc(time.time() - t0)

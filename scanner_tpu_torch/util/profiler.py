@@ -3,6 +3,13 @@
 Capability parity: reference scanner/util/profiler.{h,cpp} (per-thread
 interval recorder, nanosecond timestamps) + scannerpy/profiler.py
 (Profile.write_trace Chrome trace JSON :57-199, statistics :214).
+
+Besides intervals, a profiler keeps a job's phases (`add_phase`): the
+stretches of a job that no stage span covers — its set-up, the
+pipeline's drain, the table commit.  They are kept apart
+from `intervals()`, whose earliest start and latest end are the
+envelope of the job's stage work, and are counted by
+`Profile.statistics()` under their own names.
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ _M_EVENTS = _mx.registry().counter(
     "Profiler counter events (state_carry_miss, stream_chunks, ...); "
     "mirrors Profiler.count so traces and live metrics agree.",
     labels=["event"])
+
+
+# the Chrome-trace track that carries a job's phases
+PHASE_TRACK = "job"
 
 
 @dataclass
@@ -57,6 +68,7 @@ class Profiler:
         self.max_intervals = max_intervals
         self._local = threading.local()
         self._all_lists: List[List[Interval]] = []
+        self._phases: List[Interval] = []
         self._counters: Dict[str, int] = defaultdict(int)
         self._lock = threading.Lock()
         # torch.profiler captures recorded around jobs at level >= 2
@@ -91,6 +103,21 @@ class Profiler:
         self._list().append(Interval(
             name, start, end, threading.current_thread().name, args or None))
 
+    def add_phase(self, name: str, start: float, end: float,
+                  **args) -> None:
+        """Record a job phase timed by the caller, at every level.  It
+        also lands in the flight recorder as a child of the current
+        trace context (the job's root span), like a span would."""
+        iv = Interval(name, start, end, threading.current_thread().name,
+                      args or None)
+        with self._lock:
+            self._phases.append(iv)
+        _tracing.record_interval(name, start, end, args or None)
+
+    def phases(self) -> List[Interval]:
+        with self._lock:
+            return sorted(self._phases, key=lambda iv: iv.start)
+
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._counters[name] += n
@@ -118,10 +145,8 @@ class Profiler:
             "max_intervals": self.max_intervals,
             "counters": self.counters,
             "device_traces": list(self.device_traces),
-            "intervals": [
-                {"name": iv.name, "start": iv.start, "end": iv.end,
-                 "thread": iv.thread, "args": iv.args}
-                for iv in self.intervals()],
+            "intervals": [_iv_dict(iv) for iv in self.intervals()],
+            "phases": [_iv_dict(iv) for iv in self.phases()],
         }
 
     @classmethod
@@ -133,14 +158,22 @@ class Profiler:
         p = cls(node=d["node"], base_time=d["base_time"],
                 level=int(d.get("level", 99)),
                 max_intervals=int(d.get("max_intervals", 2 ** 63 - 1)))
-        lst = p._list()
-        for iv in d["intervals"]:
-            lst.append(Interval(iv["name"], iv["start"], iv["end"],
-                                iv["thread"], iv.get("args")))
+        p._list().extend(_iv_from(iv) for iv in d["intervals"])
+        p._phases.extend(_iv_from(iv) for iv in d.get("phases", []))
         for k, v in d["counters"].items():
             p._counters[k] = v
         p.device_traces = list(d.get("device_traces", []))
         return p
+
+
+def _iv_dict(iv: Interval) -> dict:
+    return {"name": iv.name, "start": iv.start, "end": iv.end,
+            "thread": iv.thread, "args": iv.args}
+
+
+def _iv_from(d: dict) -> Interval:
+    return Interval(d["name"], d["start"], d["end"], d["thread"],
+                    d.get("args"))
 
 
 class _NullSpan:
@@ -150,6 +183,9 @@ class _NullSpan:
 
     def __enter__(self):
         return self
+
+    def set_args(self, **args) -> None:
+        pass
 
     def __exit__(self, *exc):
         return False
@@ -175,6 +211,14 @@ class _Span:
         self._trace = _tracing.begin_interval(self.name, self.args) \
             if _tracing.enabled() else None
         return self
+
+    def set_args(self, **args) -> None:
+        """Add args known only once the span's work is done (bytes
+        read, say); they reach the flight recorder's span too."""
+        self.args = {**(self.args or {}), **args}
+        if self._trace is not None:
+            span = self._trace[1]
+            span.attrs = {**(span.attrs or {}), **args}
 
     def __exit__(self, exc_type, exc, tb):
         if self.prof._room():
@@ -206,8 +250,11 @@ class Profile:
             events.append({"name": "process_name", "ph": "M", "pid": pid,
                            "args": {"name": f"node {p.node}"}})
             tids: Dict[str, int] = {}
-            for iv in p.intervals():
-                tid = tids.setdefault(iv.thread, len(tids) + 1)
+            # the job's phases on a track of their own
+            tracked = [(iv, iv.thread) for iv in p.intervals()] \
+                + [(iv, PHASE_TRACK) for iv in p.phases()]
+            for iv, track in tracked:
+                tid = tids.setdefault(track, len(tids) + 1)
                 ev = {"name": iv.name, "ph": "X", "pid": pid, "tid": tid,
                       "ts": iv.start * 1e6, "dur": (iv.end - iv.start) * 1e6}
                 if iv.args:
@@ -230,10 +277,11 @@ class Profile:
             json.dump({"traceEvents": events}, f)
 
     def statistics(self) -> Dict[str, Dict[str, float]]:
-        """Total/mean seconds per interval label across all nodes."""
+        """Total/mean seconds per interval label, and per job phase,
+        across all nodes."""
         totals: Dict[str, List[float]] = defaultdict(list)
         for p in self.profilers:
-            for iv in p.intervals():
+            for iv in p.intervals() + p.phases():
                 totals[iv.name].append(iv.end - iv.start)
         out = {}
         for name, durs in sorted(totals.items()):

@@ -421,6 +421,24 @@ def begin_interval(name: str, attrs: Optional[Dict[str, Any]]):
     return (tracer, span, tok)
 
 
+def record_interval(name: str, start: float, end: float,
+                    attrs: Optional[Dict[str, Any]] = None) -> None:
+    """Record an interval the caller has already timed as a closed child
+    span of the current context (nothing outside any trace).  Called by
+    Profiler.add_phase."""
+    cur = _CURRENT.get()
+    if cur is None or not _ENABLED:
+        return
+    tracer, parent = cur
+    trace_id, parent_id = _ids(parent)
+    span = Span(name, trace_id, new_span_id(), parent_id, start,
+                node=tracer.node,
+                thread=threading.current_thread().name,
+                attrs=dict(attrs) if attrs else None)
+    span.end = end
+    tracer.record(span)
+
+
 def end_interval(token, exc: Optional[BaseException] = None) -> None:
     if token is None:
         return
