@@ -106,7 +106,7 @@ _M_TASK_LATENCY = _mx.registry().histogram(
     buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
              120.0, 300.0, 600.0))
 
-_SENTINEL = object()
+_SENTINEL = object()     # pipeline queues: the stream has ended
 _CHUNK_DONE = object()   # streaming producer: all chunks delivered
 _CHUNK_ERR = object()    # streaming producer: (marker, exception)
 
@@ -810,6 +810,55 @@ class LocalExecutor:
                            w.job.job_idx, w.task_idx, exc_info=e)
             record_err(e)
 
+        def put_until_stop(q: "queue.Queue", item) -> bool:
+            """Put on a bounded queue, giving up (False) once `stop` is
+            set: a consumer that died must not block its producer
+            forever."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.25)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        # The end of the stream travels down the queues: the last loader
+        # to end puts one _SENTINEL per evaluator on the evaluators'
+        # queues (n_evals on a shared queue, one on each instance's),
+        # the last evaluator one per saver on save_q.  FIFO order hands
+        # every task put before a marker over first.
+        live = {"load": n_loaders, "evaluate": n_evals}
+        live_lock = threading.Lock()
+
+        def end_stream(stage: str, downstream: List["queue.Queue"]) -> None:
+            with live_lock:
+                live[stage] -= 1
+                if live[stage]:
+                    return
+            for q in downstream:
+                put_until_stop(q, _SENTINEL)
+
+        def take(q: "queue.Queue", upstream: List[threading.Thread]):
+            """The next task on `q`, or None when the stream has ended (a
+            marker taken) or `stop` is set.  The timed get only notices
+            `stop`; a consumer whose producers have all ended and whose
+            queue is empty lost its marker, and leaves counted as a
+            `pipeline.poll_exits`."""
+            while not stop.is_set():
+                try:
+                    w = q.get(timeout=0.25)
+                except queue.Empty:
+                    # a producer puts its markers before it ends, unless
+                    # `stop` was set first: test its liveness, then the
+                    # queue, then `stop`
+                    if not any(t.is_alive() for t in upstream) \
+                            and q.empty() and not stop.is_set():
+                        self.profiler.count("pipeline.poll_exits")
+                        return None
+                    continue
+                return None if w is _SENTINEL else w
+            return None
+
         # loader cache: (thread, job, node) -> DecoderAutomata
         tls = threading.local()
 
@@ -853,15 +902,8 @@ class LocalExecutor:
                         except Exception as e:  # noqa: BLE001
                             task_failed(w, e)
                             continue
-                        placed = False
-                        while not stop.is_set():
-                            try:
-                                eval_qs[w.instance].put(w, timeout=0.25)
-                                placed = True
-                                break
-                            except queue.Full:
-                                pass
-                        if placed and w.chunk_plans is not None:
+                        if put_until_stop(eval_qs[w.instance], w) \
+                                and w.chunk_plans is not None:
                             # streaming task: decode chunks into its
                             # bounded queue while the evaluator consumes
                             with self._task_scope(w):
@@ -875,6 +917,8 @@ class LocalExecutor:
                         tls.automata = {}
             except BaseException as e:  # noqa: BLE001
                 record_err(e)
+            finally:
+                end_stream("load", eval_qs)
 
         def make_evaluator(idx: int, skip_fetch: bool) -> TaskEvaluator:
             if evaluator_factory is not None:
@@ -898,15 +942,7 @@ class LocalExecutor:
                 te = make_evaluator(evaluator_idx, evaluator_idx > 0)
                 if evaluator_idx == 0:
                     fetch_done.set()
-                while not stop.is_set():
-                    try:
-                        w: TaskItem = my_q.get(timeout=0.25)
-                    except queue.Empty:
-                        if loaders_done.is_set() and my_q.empty():
-                            break
-                        continue
-                    if w is _SENTINEL:
-                        break
+                while (w := take(my_q, loaders)) is not None:
                     try:
                         if on_start is not None and on_start(w) is False:
                             if w.chunk_abort is not None:
@@ -947,16 +983,12 @@ class LocalExecutor:
                         continue
                     if on_eval_done is not None:
                         on_eval_done(w)
-                    while not stop.is_set():
-                        try:
-                            save_q.put(w, timeout=0.25)
-                            break
-                        except queue.Full:
-                            pass
+                    put_until_stop(save_q, w)
             except BaseException as e:  # noqa: BLE001
                 record_err(e)
             finally:
                 fetch_done.set()  # never leave siblings waiting
+                end_stream("evaluate", [save_q] * self.num_save_workers)
                 for auto in getattr(fb_tls, "automata", {}).values():
                     auto.close()
                 if te is not None and close_evaluators:
@@ -968,13 +1000,7 @@ class LocalExecutor:
 
         def saver():
             try:
-                while not stop.is_set():
-                    try:
-                        w: TaskItem = save_q.get(timeout=0.25)
-                    except queue.Empty:
-                        if evals_done.is_set() and save_q.empty():
-                            break
-                        continue
+                while (w := take(save_q, evals)) is not None:
                     try:
                         t0 = time.time()
                         with self._task_scope(w):
@@ -1005,8 +1031,6 @@ class LocalExecutor:
                 record_err(e)
 
         fetch_done = threading.Event()
-        loaders_done = threading.Event()
-        evals_done = threading.Event()
 
         loaders = [threading.Thread(target=loader, name=f"load-{i}")
                    for i in range(n_loaders)]
@@ -1023,13 +1047,7 @@ class LocalExecutor:
                                         time.time())
             for t in loaders + evals + savers:
                 t.start()
-            for t in loaders:
-                t.join()
-            loaders_done.set()
-            for t in evals:
-                t.join()
-            evals_done.set()
-            for t in savers:
+            for t in loaders + evals + savers:
                 t.join()
             if last_done[0] is not None:
                 self.profiler.add_phase("pipeline.drain", last_done[0],
