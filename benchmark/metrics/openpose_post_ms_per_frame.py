@@ -1,0 +1,12 @@
+"""model post-processing: the profile's `openpose:post` span seconds
+(upsampling, NMS, top-K and line integrals dispatched inside
+`evaluate:OpenPose`, and the waits the launch queue forces), summed
+over the window's jobs, per frame those jobs completed, in ms; nothing
+where no job recorded the span."""
+
+SPAN = "openpose:post"
+
+
+def read(rec):
+    secs = sum(j.stats[SPAN]["total_s"] for j in rec.jobs if SPAN in j.stats)
+    return 1e3 * secs / rec.frames if secs and rec.frames else None

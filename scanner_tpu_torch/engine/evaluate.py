@@ -63,7 +63,7 @@ from ..util import memstats as _ms
 from ..util import metrics as _mx
 from ..util import tracing as _tracing
 from ..util.log import get_logger
-from ..util.profiler import Profiler
+from ..util.profiler import Profiler, recording_into
 from .batch import ColumnBatch, _index, concat_batches, is_array_data
 
 _log = get_logger("evaluate")
@@ -1220,8 +1220,11 @@ class TaskEvaluator:
             and n.effective_device() == DeviceType.TPU
         t0 = time.time()
         try:
-            with self.profiler.span("evaluate:" + n.name,
-                                    rows=len(compute)):
+            # the kernel's own spans (util/profiler.py span) land
+            # inside its evaluate span
+            with recording_into(self.profiler), \
+                    self.profiler.span("evaluate:" + n.name,
+                                       rows=len(compute)):
                 for lo, hi in run_bounds:
                     ki.maybe_reset(int(compute[lo]))
                     ki._last_row = int(compute[hi - 1])
@@ -1405,8 +1408,9 @@ class TaskEvaluator:
         track_cost = _cs.enabled()
         t0 = time.time()
         try:
-            with self.profiler.span("evaluate:" + fki.chain_id,
-                                    rows=len(compute)):
+            with recording_into(self.profiler), \
+                    self.profiler.span("evaluate:" + fki.chain_id,
+                                       rows=len(compute)):
                 i = 0
                 while i < len(compute):
                     j = min(i + batch, len(compute))

@@ -10,10 +10,18 @@ pipeline's drain, the table commit.  They are kept apart
 from `intervals()`, whose earliest start and latest end are the
 envelope of the job's stage work, and are counted by
 `Profile.statistics()` under their own names.
+
+A kernel records spans of its own in its job's profile through the
+module-level `span()`: the evaluator makes its profiler this thread's
+current one (`recording_into`) around its kernel calls, so those spans
+land inside the op's `evaluate:<op>` span; with no current profiler
+(a kernel called outside the engine, or by the evaluator's warm-up
+thread) they record nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -36,6 +44,9 @@ _M_EVENTS = _mx.registry().counter(
 
 # the Chrome-trace track that carries a job's phases
 PHASE_TRACK = "job"
+
+# the profiler a kernel called on this thread records its spans in
+_current = threading.local()
 
 
 @dataclass
@@ -228,6 +239,24 @@ class _Span:
         if self._trace is not None:
             _tracing.end_interval(self._trace, exc)
         return False
+
+
+@contextlib.contextmanager
+def recording_into(prof: Optional["Profiler"]):
+    """Make `prof` this thread's current profiler inside the block."""
+    prev = getattr(_current, "prof", None)
+    _current.prof = prof
+    try:
+        yield prof
+    finally:
+        _current.prof = prev
+
+
+def span(name: str, level: int = 1, **args):
+    """A span in this thread's current profiler (`recording_into`), or
+    one that records nothing when there is none."""
+    prof = getattr(_current, "prof", None)
+    return _NULL_SPAN if prof is None else prof.span(name, level, **args)
 
 
 class Profile:

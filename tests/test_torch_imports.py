@@ -72,8 +72,8 @@ def test_no_jax_or_reference_imports(path):
 PORTED_OPS = ["Blur", "CropResize", "FaceDetect", "FaceEmbedding",
               "Grayscale", "HistDiff", "Histogram", "HistogramDelta",
               "ImageDecode", "ImageEncode", "InstanceSegment",
-              "ObjectDetect", "OpticalFlow", "PoseDetect", "Resize",
-              "ShotBoundary"]
+              "ObjectDetect", "OpenPose", "OpticalFlow", "PoseDetect",
+              "Resize", "ShotBoundary"]
 
 
 def test_import_with_jax_blocked():
