@@ -128,7 +128,7 @@ class JobContext:
     skipped: bool = False
     tasks_done: int = 0
     # sparse-read crossover for column loads (PerfParams
-    # .load_sparsity_threshold -> items.read_item_rows)
+    # .load_sparsity_threshold -> items.read_item_rows_into)
     sparsity_threshold: int = 8
     # per sink id: "video" | "pickle", fixed by the first task written so
     # mixed-dtype frame outputs fail loudly instead of corrupting the table
@@ -1405,7 +1405,7 @@ class LocalExecutor:
                         elements[nid] = feeds[nid].batch_for(rows)
                     else:
                         elements[nid] = self._load_plain_source(
-                            w, nid, [int(r) for r in rows])
+                            w, nid, [int(r) for r in rows], tls)
                 self._prestage_device_columns(info, w, elements=elements)
             _M_STAGE_SECONDS.labels(stage="load").inc(time.time() - t0)
             yield plan, elements
@@ -1715,7 +1715,8 @@ class LocalExecutor:
             rows_arr = np.asarray(rows, np.int64)
             rows_l = [int(r) for r in rows]
             if not si["is_video"]:
-                out[node_id] = self._load_plain_source(w, node_id, rows_l)
+                out[node_id] = self._load_plain_source(w, node_id, rows_l,
+                                                       tls)
             elif si["is_video"]:
                 # rows are global; multi-item video tables (job outputs)
                 # hold one independently-decodable item per task
@@ -1765,9 +1766,11 @@ class LocalExecutor:
         return out
 
     def _load_plain_source(self, w: TaskItem, node_id: int,
-                           rows_l: List[int]) -> ColumnBatch:
+                           rows_l: List[int], tls) -> ColumnBatch:
         """Non-video source rows: custom-storage reads or column loads
-        (shared by the whole-task and per-chunk streaming loaders)."""
+        (shared by the whole-task and per-chunk streaming loaders).  A
+        column load reads into the row buffer `tls` keeps, and decodes
+        before this thread's next read reuses it."""
         si = w.job.source_info[node_id]
         rows_arr = np.asarray(rows_l, np.int64)
         n = len(rows_l)
@@ -1776,14 +1779,24 @@ class LocalExecutor:
                 vals = si["custom"].storage.read_rows(si["custom"], rows_l)
             with self.profiler.span("load:decode", rows=n):
                 return ColumnBatch.from_elements(rows_arr, vals)
-        from ..storage.streams import decode_element
+        from ..storage.items import RowBuffer
+        from ..storage.streams import DECODE_COPIES, decode_element
         desc = si["table"]
-        with self.profiler.span("load:read", rows=n) as sp:
-            vals = list(self.db.load_column(
-                desc.id, si["column"], rows=rows_l,
-                sparsity_threshold=w.job.sparsity_threshold))
-            sp.set_args(bytes=sum(len(v) for v in vals if v is not None))
         codec = si.get("codec", "raw")
+        buf = getattr(tls, "row_buffer", None)
+        if buf is None:
+            buf = tls.row_buffer = RowBuffer()
+        with self.profiler.span("load:read", rows=n) as sp:
+            vals = self.db.read_rows_into(
+                desc.id, si["column"], rows_l, buf,
+                sparsity_threshold=w.job.sparsity_threshold)
+            sp.set_args(bytes=sum(len(v) for v in vals if v is not None),
+                        reads=buf.reads)
+            if codec not in DECODE_COPIES:
+                # the row itself is the element: it must own its bytes
+                vals = [None if v is None else bytes(v) for v in vals]
+        self.profiler.count("load_read_fresh" if buf.grew
+                            else "load_read_kept")
         with self.profiler.span("load:decode", rows=n):
             return ColumnBatch.from_elements(
                 rows_arr, [decode_element(v, codec) for v in vals])

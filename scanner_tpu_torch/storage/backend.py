@@ -30,6 +30,18 @@ class StorageBackend:
     def read_range(self, path: str, offset: int, size: int) -> bytes:
         raise NotImplementedError
 
+    def read_into(self, path: str, offset: int, view: memoryview) -> None:
+        """Fill the writable `view` with the `len(view)` bytes of `path`
+        at `offset`; a range past the end raises.  This default copies
+        out of `read_range`, so any backend serves it; one that can
+        read straight into caller memory overrides it."""
+        data = self.read_range(path, offset, len(view))
+        if len(data) != len(view):
+            raise StorageException(
+                f"short read ({len(data)} of {len(view)} bytes at "
+                f"{offset}): {path}")
+        view[:] = data
+
     def write(self, path: str, data: bytes, sync: bool = True) -> None:
         """Atomically replace `path` with `data`.  sync=False skips the
         durability barrier (fsync) where the backend has one: the blob
@@ -104,6 +116,27 @@ class PosixStorage(StorageBackend):
         if _faults.ACTIVE:
             data = _faults.inject("storage.read", data, detail=path)
         return data
+
+    def read_into(self, path: str, offset: int, view: memoryview) -> None:
+        try:
+            fd = os.open(self._abs(path), os.O_RDONLY)
+        except FileNotFoundError as e:
+            raise StorageException(f"not found: {path}") from e
+        try:
+            got = 0
+            while got < len(view):
+                n = os.preadv(fd, [view[got:]], offset + got)
+                if n == 0:
+                    raise StorageException(
+                        f"short read ({got} of {len(view)} bytes at "
+                        f"{offset}): {path}")
+                got += n
+        finally:
+            os.close(fd)
+        if _faults.ACTIVE:
+            data = _faults.inject("storage.read", view, detail=path)
+            if data is not view:
+                view[:] = data
 
     def write(self, path: str, data: bytes, sync: bool = True) -> None:
         if _faults.ACTIVE:

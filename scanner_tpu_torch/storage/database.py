@@ -162,12 +162,46 @@ class Database:
         Video columns yield *encoded* data here; frame decode lives in
         storage/streams.py which wraps this with the video layer.
         """
+        desc = self._column_desc(table, column)
+        return self._load_column_iter(desc, column, rows, sparsity_threshold)
+
+    def read_rows_into(self, table: Union[str, int], column: str,
+                       rows: Sequence[int], buf: items.RowBuffer,
+                       sparsity_threshold: int = 8
+                       ) -> List[Optional[Union[bytes, memoryview]]]:
+        """The rows `load_column(table, column, rows)` yields, read into
+        `buf` (items.read_item_rows_into): views valid until the next
+        read into `buf`, which starts here."""
+        desc = self._column_desc(table, column)
+        buf.start()
+        by_item, order = self._rows_by_item(desc, rows)
+        fetched = {
+            it: items.read_item_rows_into(
+                self.backend, md.column_item_path(desc.id, column, it),
+                local, buf, sparsity_threshold)
+            for it, local in by_item.items()}
+        return [fetched[it][idx] for it, idx in order]
+
+    def _column_desc(self, table, column) -> md.TableDescriptor:
         desc = self.table_descriptor(table)
         if column not in desc.column_names():
             raise StorageException(
                 f"table {desc.name} has no column {column} "
                 f"(has {desc.column_names()})")
-        return self._load_column_iter(desc, column, rows, sparsity_threshold)
+        return desc
+
+    @staticmethod
+    def _rows_by_item(desc, rows):
+        """Group global rows by item: ({item: [local row, ...]},
+        [(item, index into that list)] in request order)."""
+        by_item: Dict[int, List[int]] = {}
+        order: List[tuple] = []
+        for r in rows:
+            it = desc.item_of_row(r)
+            start, _ = desc.item_bounds(it)
+            by_item.setdefault(it, []).append(r - start)
+            order.append((it, len(by_item[it]) - 1))
+        return by_item, order
 
     def _load_column_iter(self, desc, column, rows, sparsity_threshold
                           ) -> Iterator[Optional[bytes]]:
@@ -177,14 +211,7 @@ class Database:
                 yield from items.read_item(self.backend, path)
         else:
             # group requested global rows by item, preserve request order
-            rows_arr = list(rows)
-            by_item: Dict[int, List[int]] = {}
-            order: List[tuple] = []
-            for r in rows_arr:
-                it = desc.item_of_row(r)
-                start, _ = desc.item_bounds(it)
-                by_item.setdefault(it, []).append(r - start)
-                order.append((it, len(by_item[it]) - 1))
+            by_item, order = self._rows_by_item(desc, list(rows))
             fetched: Dict[int, List[Optional[bytes]]] = {}
             for it, local in by_item.items():
                 path = md.column_item_path(desc.id, column, it)

@@ -55,6 +55,9 @@ _HEADER_V2 = struct.Struct("<IIQI")  # shared by versions 2 and 3
 # the largest header any version uses; ranged header reads fetch this
 # many bytes and let the version field decide how much is meaningful
 HEADER_MAX = _HEADER_V2.size
+# read_item_rows_into's first ranged read: the header and, for items of
+# up to (SIZES_PREFIX - HEADER_MAX) // 8 = 4093 rows, every row's size
+SIZES_PREFIX = 32 << 10
 
 RowData = Union[bytes, NullElement]
 
@@ -272,37 +275,123 @@ def read_item(backend: StorageBackend, path: str) -> List[Optional[bytes]]:
 def read_item_rows(backend: StorageBackend, path: str,
                    local_rows: Sequence[int],
                    sparsity_threshold: int = 8) -> List[Optional[bytes]]:
-    """Read selected rows (local indices) from an item.
+    """Read selected rows (local indices) from an item, each as bytes
+    of its own: `read_item_rows_into` with a buffer of this call's.
 
     If the requested rows are dense relative to the item, the whole file is
     fetched with one read (checksum-verified); otherwise the sizes header is
-    read first and each row fetched with a ranged read.
+    read first and each run of adjacent rows fetched with a ranged read.
+    """
+    return [None if v is None else bytes(v)
+            for v in read_item_rows_into(backend, path, local_rows,
+                                         RowBuffer(), sparsity_threshold)]
+
+
+class RowBuffer:
+    """Memory one reading thread keeps across its reads of stored rows
+    (`read_item_rows_into`).  The rows of a read land in it, and it is
+    reallocated only when a read needs more room than it has.  The views
+    a read hands out stay valid until the next `start()`.
+
+    `grew` says whether the reads since `start()` allocated (a larger
+    buffer, or a dense read's whole item), `reads` how many backend
+    reads they issued."""
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+        self._used = 0
+        self.grew = False
+        self.reads = 0
+
+    def start(self) -> None:
+        """Begin a read: the views of the previous one may be
+        overwritten from here on."""
+        self._used = 0
+        self.grew = False
+        self.reads = 0
+
+    def take(self, n: int) -> memoryview:
+        """The next `n` bytes of the buffer, as a writable view."""
+        end = self._used + n
+        if end > len(self._buf):
+            # a new array, not a resize: views already handed out keep
+            # the old one alive; room for this whole read, and a quarter
+            # more, so that the next read of a like size fits
+            self._buf = bytearray(end + end // 4)
+            self._used, end = 0, n
+            self.grew = True
+        view = memoryview(self._buf)[self._used:end]
+        self._used = end
+        return view
+
+
+def read_item_rows_into(backend: StorageBackend, path: str,
+                        local_rows: Sequence[int], buf: RowBuffer,
+                        sparsity_threshold: int = 8
+                        ) -> List[Optional[Union[bytes, memoryview]]]:
+    """Read selected rows (local indices) from an item into `buf`: one
+    memoryview of the buffer for each requested row, valid until
+    `buf.start()`, and None for a null row.
+
+    Rows dense relative to the item (rows × `sparsity_threshold` ≥ the
+    item's rows) come from one read of the whole item, checksum-verified,
+    as bytes.  Otherwise one ranged read fetches the header and the
+    sizes (two when they pass SIZES_PREFIX), then one `read_into` fetches
+    each run of adjacent requested rows, in file order.
     """
     if len(local_rows) == 0:
         return []
-    header = backend.read_range(path, 0, HEADER_MAX)
-    nrows, hdr, _ver, _crc = _parse_header(header, path)
+    head = backend.read_range(path, 0, SIZES_PREFIX)
+    buf.reads += 1
+    nrows, hdr, _ver, _crc = _parse_header(head, path)
     if nrows == 0:
         raise StorageException(f"empty item: {path}")
-    dense = len(local_rows) * sparsity_threshold >= nrows
-    if dense:
+    if len(local_rows) * sparsity_threshold >= nrows:
         all_rows = read_item(backend, path)
+        buf.reads += 1
+        buf.grew = True
         return [all_rows[r] for r in local_rows]
-    sizes_buf = backend.read_range(path, hdr, 8 * nrows)
-    sizes = np.frombuffer(sizes_buf, dtype=np.uint64, count=nrows)
-    payload_sizes = np.where(sizes == NULL_SIZE, 0, sizes).astype(np.uint64)
-    offsets = np.zeros(nrows, dtype=np.uint64)
-    np.cumsum(payload_sizes[:-1], out=offsets[1:])
+    rows = np.asarray(local_rows, dtype=np.int64)
+    bad = rows[(rows < 0) | (rows >= nrows)]
+    if len(bad):
+        raise StorageException(
+            f"row {bad[0]} out of item bounds ({nrows}): {path}")
+    if len(head) >= hdr + 8 * nrows:
+        sizes = np.frombuffer(head, dtype=np.uint64, count=nrows,
+                              offset=hdr)
+    else:
+        sizes_buf = backend.read_range(path, hdr, 8 * nrows)
+        buf.reads += 1
+        if len(sizes_buf) != 8 * nrows:
+            raise StorageException(f"item file too short: {path}")
+        sizes = np.frombuffer(sizes_buf, dtype=np.uint64, count=nrows)
+    null = sizes == NULL_SIZE
+    # starts[r]: row r's payload offset; starts[r + 1] - starts[r] its size
+    starts = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(np.where(null, 0, sizes).astype(np.int64), out=starts[1:])
     base = hdr + 8 * nrows
-    out: List[Optional[bytes]] = []
-    for r in local_rows:
-        if r < 0 or r >= nrows:
-            raise StorageException(f"row {r} out of item bounds ({nrows}): {path}")
-        if sizes[r] == NULL_SIZE:
+    want = np.unique(rows)
+    cut = np.flatnonzero(np.diff(want) != 1) + 1
+    firsts, lasts = want[np.r_[0, cut]], want[np.r_[cut - 1, len(want) - 1]]
+    runs = []
+    for first, last in zip(firsts.tolist(), lasts.tolist()):
+        lo, hi = int(starts[first]), int(starts[last + 1])
+        if hi == lo:
+            view = memoryview(b"")
+        else:
+            view = buf.take(hi - lo)
+            backend.read_into(path, base + lo, view)
+            buf.reads += 1
+        runs.append((lo, view))
+    out: List[Optional[memoryview]] = []
+    for r, k in zip(rows.tolist(),
+                    (np.searchsorted(firsts, rows, side="right") - 1
+                     ).tolist()):
+        if null[r]:
             out.append(None)
         else:
-            out.append(backend.read_range(path, base + int(offsets[r]),
-                                          int(sizes[r])))
+            lo, view = runs[k]
+            out.append(view[starts[r] - lo:starts[r + 1] - lo])
     return out
 
 

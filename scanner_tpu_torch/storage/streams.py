@@ -21,6 +21,12 @@ from . import metadata as md
 from .database import Database
 
 
+# codecs whose decode copies out of the row it is given, so the row may
+# be a view of a buffer that a later read reuses; decode_element hands
+# a row of any other codec back as it is
+DECODE_COPIES = frozenset({"pickle", "image"})
+
+
 def decode_element(blob: Optional[bytes], codec: str):
     """Single source of truth for row decoding by column codec."""
     if blob is None:
