@@ -100,9 +100,7 @@ class PerfParams:
     # instance per local chip on multi-device accelerator hosts —
     # instance i owns chip i, stages its tasks' inputs there and runs
     # the shared jitted kernels on it — and 1 elsewhere.  An explicit
-    # value here (or on the Client/Worker constructor) always wins;
-    # SCANNER_TPU_DEVICE_AFFINITY=0 disables the per-chip resolution
-    # and pinning entirely (the A/B lever).
+    # value here (or on the Client/Worker constructor) always wins.
     pipeline_instances_per_node: Optional[int] = None
     load_sparsity_threshold: int = 8
     queue_size_per_pipeline: int = 4
@@ -129,7 +127,6 @@ class PerfParams:
     # Bounds peak memory to a few work packets per task (the 4K case)
     # and overlaps decode/h2d/compute inside a task (reference element
     # cache + feeder threads, evaluate_worker.h:207-218).
-    # SCANNER_TPU_STREAM_PACKETS=0 is the global kill switch.
     stream_work_packets: bool = True
     # Gang-scheduled multi-host execution (engine/gang.py,
     # docs/robustness.md §Gang scheduling): >0 asks the master to

@@ -130,6 +130,9 @@ class JobContext:
     # sparse-read crossover for column loads (PerfParams
     # .load_sparsity_threshold -> items.read_item_rows_into)
     sparsity_threshold: int = 8
+    # PerfParams.stream_work_packets: whether a task longer than one
+    # work packet loads as a stream of chunks (_load_task)
+    stream_work_packets: bool = True
     # per sink id: "video" | "pickle", fixed by the first task written so
     # mixed-dtype frame outputs fail loudly instead of corrupting the table
     sink_modes: Dict[int, str] = field(default_factory=dict)
@@ -163,9 +166,10 @@ class TaskItem:
     # evaluate the task (a mismatch would silently copy cross-chip)
     instance: int = 0
     device: Optional[Any] = None
-    # work-packet streaming (PerfParams.stream_work_packets): the task's
-    # per-chunk plans, the loader->evaluator chunk queue, and the abort
-    # handshake (evaluator failure must unblock a producing loader)
+    # work-packet streaming, set by the load stage when the task's job
+    # streams (JobContext.stream_work_packets): the task's per-chunk
+    # plans, the loader->evaluator chunk queue, and the abort handshake
+    # (evaluator failure must unblock a producing loader)
     chunk_plans: Optional[List[A.TaskPlan]] = None
     chunk_q: Optional["queue.Queue"] = None
     chunk_abort: Optional[threading.Event] = None
@@ -269,8 +273,6 @@ class LocalExecutor:
         self._device_bound_lock = threading.Lock()
         # job idx -> _StatefulChain when stateful task affinity is active
         self._chains: Dict[int, _StatefulChain] = {}
-        # PerfParams.stream_work_packets, latched per run/bulk
-        self._stream_opt = True
         # span sink for this executor's task/stage/op spans; a cluster
         # Worker swaps in its own export-enabled tracer so spans ship to
         # the master (ShipSpans)
@@ -434,6 +436,8 @@ class LocalExecutor:
         jr = A.job_rows(info, j, source_rows)
         jr.work_packet_size = int(perf.work_packet_size)
         tasks = A.generate_tasks(jr, perf.io_packet_size)
+        knobs = dict(sparsity_threshold=int(perf.load_sparsity_threshold),
+                     stream_work_packets=bool(perf.stream_work_packets))
 
         # output tables (pre-created uncommitted, reference
         # master.cpp:1619-1663).  CacheMode.Ignore skips the job only when
@@ -471,8 +475,7 @@ class LocalExecutor:
                 enc = dict(sink.extra.get("encode_options") or {})
                 sink_tables[sink.id] = (desc, desc.columns[0].name, codec,
                                         enc)
-            return JobContext(job_idx=j, jr=jr, tasks=tasks,
-                          sparsity_threshold=int(perf.load_sparsity_threshold),
+            return JobContext(job_idx=j, jr=jr, tasks=tasks, **knobs,
                               source_info=source_info,
                               sink_tables=sink_tables, fps=fps,
                               custom_sinks=custom_sinks,
@@ -480,8 +483,7 @@ class LocalExecutor:
         if table_sinks and not custom_sinks \
                 and cache_mode == CacheMode.Ignore and all(
                 self.db.table_is_committed(nm) for nm in sink_names):
-            return JobContext(job_idx=j, jr=jr, tasks=tasks,
-                          sparsity_threshold=int(perf.load_sparsity_threshold),
+            return JobContext(job_idx=j, jr=jr, tasks=tasks, **knobs,
                               source_info=source_info, sink_tables={},
                               fps=fps, skipped=True)
         sink_tables: Dict[int, Tuple] = {}
@@ -504,8 +506,7 @@ class LocalExecutor:
                 name, [col], end_rows=[e for _, e in tasks], job_id=-1)
             enc = dict(sink.extra.get("encode_options") or {})
             sink_tables[sink.id] = (desc, col.name, codec, enc)
-        ctx = JobContext(job_idx=j, jr=jr, tasks=tasks,
-                          sparsity_threshold=int(perf.load_sparsity_threshold),
+        ctx = JobContext(job_idx=j, jr=jr, tasks=tasks, **knobs,
                          source_info=source_info, sink_tables=sink_tables,
                          fps=fps, custom_sinks=custom_sinks,
                          skipped=not sink_tables and not custom_sinks)
@@ -551,15 +552,17 @@ class LocalExecutor:
 
     # -- tracing glue (util/tracing.py) --------------------------------
 
-    def _task_trace_begin(self, w: TaskItem) -> None:
+    def _task_trace_begin(self, w: TaskItem, **attrs: Any) -> None:
         """Open the task's span (idempotent): child of its trace context
         — the job root span locally, the master's assign span in
-        cluster mode.  No context = no span (tracing off or untraced
-        caller); every stage then runs trace-free at one None check."""
+        cluster mode — with `attrs` beside its ids.  No context = no
+        span (tracing off or untraced caller); every stage then runs
+        trace-free at one None check."""
         if w.trace_span is None and w.trace_ctx is not None:
             w.trace_span = _tr.open_span(
                 self.tracer, "task", parent=w.trace_ctx,
-                job=w.job.job_idx, task=w.task_idx, attempt=w.attempt)
+                job=w.job.job_idx, task=w.task_idx, attempt=w.attempt,
+                **attrs)
 
     def _task_scope(self, w: TaskItem):
         """Resume the task span on the calling stage thread, so the
@@ -605,7 +608,6 @@ class LocalExecutor:
              started_at) -> List[JobContext]:
         info, jobs = self.prepare(outputs, perf, cache_mode)
         self.setup_chains(info, jobs, perf)
-        self._stream_opt = bool(getattr(perf, "stream_work_packets", True))
         self.profiler.level = int(getattr(perf, "profiler_level", 1))
         work = [TaskItem(job, t, rng)
                 for job in jobs if not job.skipped
@@ -719,8 +721,10 @@ class LocalExecutor:
         Returns the number of tasks fully saved.
 
         SCANNER_TPU_NO_PIPELINING=1 (reference worker.cpp:140
-        NO_PIPELINING) degrades to a single-threaded sequential loop —
-        same semantics, clean stack traces for debugging."""
+        NO_PIPELINING) degrades to one loop on the calling thread that
+        runs each task's stages through the same stage core
+        (_evaluate_stage, save_results) — same semantics, clean stack
+        traces for debugging."""
         # the health/SLO engine watches this pipeline's queue-depth and
         # stage-rate series: make sure it samples while stages run, even
         # when no Client started it (direct LocalExecutor embedding);
@@ -729,13 +733,23 @@ class LocalExecutor:
         # re-warm)
         _health.ensure_started()
         _controller.ensure_started()
+
+        def make_evaluator(idx: int, skip_fetch: bool,
+                           instances: int = 1) -> TaskEvaluator:
+            if evaluator_factory is not None:
+                return evaluator_factory(idx, skip_fetch)
+            return TaskEvaluator(info, self.profiler, self.device,
+                                 stage=self.stage,
+                                 skip_fetch_resources=skip_fetch,
+                                 precompile=precompile,
+                                 instance=idx, instances=instances)
+
         if os.environ.get("SCANNER_TPU_NO_PIPELINING", "0") not in \
                 ("0", "", "false"):
             return self._run_serial(info, source, on_start, on_done,
                                     on_eval_done, on_task_error,
-                                    evaluator_factory, close_evaluators,
-                                    show_progress, total, precompile,
-                                    setup_from)
+                                    make_evaluator, close_evaluators,
+                                    show_progress, total, setup_from)
         qsize = queue_size or 4
         # stateful affinity: kernel state lives in ONE instance's kernels,
         # so a chained run serializes evaluation (the reference pins a
@@ -793,34 +807,12 @@ class LocalExecutor:
         def task_failed(w: TaskItem, e: BaseException) -> None:
             """Route one task's failure; abort unless the error handler
             accepts it (cluster mode reports FailedWork and moves on)."""
-            if w.trace_span is not None:
-                w.trace_span.add_event("error", type=type(e).__name__,
-                                       message=str(e)[:200])
-            self._task_trace_end(w, status="error")
-            # drop the failed attempt's staged columns/results NOW: a
-            # task requeued after memory pressure must not keep holding
-            # the very device buffers that caused it (cache pins
-            # likewise must not outlive the attempt)
-            w.elements = None
-            w.results = None
-            self._release_cache(w)
+            self._fail_task(w, e)
             if on_task_error is not None and on_task_error(w, e):
                 return
             _log.exception("task (%d,%d) failed; aborting pipeline",
                            w.job.job_idx, w.task_idx, exc_info=e)
             record_err(e)
-
-        def put_until_stop(q: "queue.Queue", item) -> bool:
-            """Put on a bounded queue, giving up (False) once `stop` is
-            set: a consumer that died must not block its producer
-            forever."""
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.25)
-                    return True
-                except queue.Full:
-                    pass
-            return False
 
         # The end of the stream travels down the queues: the last loader
         # to end puts one _SENTINEL per evaluator on the evaluators'
@@ -836,7 +828,7 @@ class LocalExecutor:
                 if live[stage]:
                     return
             for q in downstream:
-                put_until_stop(q, _SENTINEL)
+                self._put_until(q, _SENTINEL, stop)
 
         def take(q: "queue.Queue", upstream: List[threading.Thread]):
             """The next task on `q`, or None when the stream has ended (a
@@ -902,7 +894,7 @@ class LocalExecutor:
                         except Exception as e:  # noqa: BLE001
                             task_failed(w, e)
                             continue
-                        if put_until_stop(eval_qs[w.instance], w) \
+                        if self._put_until(eval_qs[w.instance], w, stop) \
                                 and w.chunk_plans is not None:
                             # streaming task: decode chunks into its
                             # bounded queue while the evaluator consumes
@@ -911,23 +903,11 @@ class LocalExecutor:
                                                      stop=stop)
                 finally:
                     # release decoder handles held by this loader thread
-                    for auto in getattr(tls, "automata", {}).values():
-                        auto.close()
-                    if hasattr(tls, "automata"):
-                        tls.automata = {}
+                    self._close_decoders(tls)
             except BaseException as e:  # noqa: BLE001
                 record_err(e)
             finally:
                 end_stream("load", eval_qs)
-
-        def make_evaluator(idx: int, skip_fetch: bool) -> TaskEvaluator:
-            if evaluator_factory is not None:
-                return evaluator_factory(idx, skip_fetch)
-            return TaskEvaluator(info, self.profiler, self.device,
-                                 stage=self.stage,
-                                 skip_fetch_resources=skip_fetch,
-                                 precompile=precompile,
-                                 instance=idx, instances=n_evals)
 
         def evaluator(evaluator_idx: int):
             te = None
@@ -939,7 +919,8 @@ class LocalExecutor:
                 # the rest only setup (reference evaluate_worker.cpp:488-534)
                 if evaluator_idx > 0:
                     fetch_done.wait()
-                te = make_evaluator(evaluator_idx, evaluator_idx > 0)
+                te = make_evaluator(evaluator_idx, evaluator_idx > 0,
+                                    n_evals)
                 if evaluator_idx == 0:
                     fetch_done.set()
                 while (w := take(my_q, loaders)) is not None:
@@ -952,45 +933,22 @@ class LocalExecutor:
                             self._release_cache(w)
                             self._task_trace_end(w, status="revoked")
                             continue  # revoked attempt: drop silently
-                        t0 = time.time()
-                        with self._task_scope(w), \
-                                self.profiler.span("evaluate", level=0,
-                                                   task=w.task_idx,
-                                                   job=w.job.job_idx):
-                            if w.chunk_q is not None:
-                                w.results = self._consume_chunks(
-                                    info, te, w, fb_tls, stop=stop)
-                            else:
-                                w.results = self._evaluate_with_fallback(
-                                    info, te, w, fb_tls)
-                        # start the sink d2h now: the copy rides under
-                        # the NEXT task's evaluation instead of blocking
-                        # the saver
-                        self._prefetch_results(w)
-                        dt = time.time() - t0
-                        _M_STAGE_SECONDS.labels(stage="evaluate").inc(dt)
-                        _M_STAGE_TASKS.labels(stage="evaluate").inc()
-                        lbl = device_label(w.device)
-                        _M_DEV_TASKS.labels(device=lbl).inc()
-                        _M_DEV_BUSY.labels(device=lbl).inc(dt)
-                        w.elements = None
-                        # evaluation is done with the cached pages:
-                        # unpin them (the sink batches are the task's
-                        # own tensors, never cache pages)
-                        self._release_cache(w)
+                        self._evaluate_stage(
+                            info, te, w, fb_tls,
+                            None if w.chunk_q is None
+                            else self._queued_chunks(w, stop))
                     except Exception as e:  # noqa: BLE001
                         task_failed(w, e)
                         continue
                     if on_eval_done is not None:
                         on_eval_done(w)
-                    put_until_stop(save_q, w)
+                    self._put_until(save_q, w, stop)
             except BaseException as e:  # noqa: BLE001
                 record_err(e)
             finally:
                 fetch_done.set()  # never leave siblings waiting
                 end_stream("evaluate", [save_q] * self.num_save_workers)
-                for auto in getattr(fb_tls, "automata", {}).values():
-                    auto.close()
+                self._close_decoders(fb_tls)
                 if te is not None and close_evaluators:
                     te.close()
 
@@ -1002,20 +960,7 @@ class LocalExecutor:
             try:
                 while (w := take(save_q, evals)) is not None:
                     try:
-                        t0 = time.time()
-                        with self._task_scope(w):
-                            with self.profiler.span("save", level=0,
-                                                    task=w.task_idx,
-                                                    job=w.job.job_idx):
-                                self._save_task(info, w)
-                        _M_STAGE_SECONDS.labels(stage="save").inc(
-                            time.time() - t0)
-                        _M_STAGE_TASKS.labels(stage="save").inc()
-                        # close the span BEFORE on_done: the cluster
-                        # worker's completion hook ships spans then sends
-                        # FinishedWork, so the master holds this task's
-                        # full chain before the bulk can finish
-                        self._task_trace_end(w)
+                        self.save_results(info, w)
                         if on_done is not None:
                             on_done(w)
                     except Exception as e:  # noqa: BLE001
@@ -1067,34 +1012,24 @@ class LocalExecutor:
         return done_count[0]
 
     def _run_serial(self, info: A.GraphInfo, source, on_start, on_done,
-                    on_eval_done, on_task_error, evaluator_factory,
+                    on_eval_done, on_task_error, make_evaluator,
                     close_evaluators: bool, show_progress: bool,
-                    total: int,
-                    precompile: Optional[Tuple[int, int, int]] = None,
-                    setup_from: Optional[float] = None) -> int:
-        """The NO_PIPELINING path: every stage inline on this thread,
-        through the same evaluator (fused chains, staging, buckets) and
-        the same load/save code as the threaded pipeline.  Its phases:
-        `job.setup` ends where the threaded path starts its stage
-        threads, `pipeline.drain` runs from the last save to the
-        return."""
+                    total: int, setup_from: Optional[float] = None) -> int:
+        """The NO_PIPELINING path: one loop on this thread takes each
+        task through load, evaluate and save, by the same stage core
+        and evaluator (fused chains, staging, buckets) as the threaded
+        pipeline.  Its phases: `job.setup` ends where the threaded path
+        starts its stage threads, `pipeline.drain` runs from the last
+        save to the return."""
         import types
         if setup_from is not None:
             self.profiler.add_phase("job.setup", setup_from, time.time())
         tls = types.SimpleNamespace()
         fb_tls = types.SimpleNamespace()  # carry-miss fallback decoders
-        if evaluator_factory is not None:
-            te = evaluator_factory(0, False)
-        else:
-            te = TaskEvaluator(info, self.profiler, self.device,
-                               stage=self.stage, precompile=precompile,
-                               instance=0)
+        te = make_evaluator(0, False)
         done = 0
         try:
-            while True:
-                w = source()
-                if w is None:
-                    break
+            while (w := source()) is not None:
                 if w == "wait":
                     time.sleep(0.2)
                     continue
@@ -1116,54 +1051,26 @@ class LocalExecutor:
                         self._release_cache(w)
                         self._task_trace_end(w, status="revoked")
                         continue  # revoked attempt
-                    t0 = time.time()
-                    with self._task_scope(w), \
-                            self.profiler.span("evaluate", level=0,
-                                               task=w.task_idx,
-                                               job=w.job.job_idx):
-                        if w.chunk_plans is not None:
-                            # inline streaming on this one thread; the
-                            # carry-miss fallback loads through fb_tls —
-                            # NOT tls, whose decoder sessions are
-                            # suspended mid-run and must not be reset
-                            w.results = self._consume_iter(
-                                info, te, w,
-                                self._iter_chunk_items(info, w, tls),
-                                fb_tls)
-                        else:
-                            w.results = self._evaluate_with_fallback(
-                                info, te, w, fb_tls)
-                    self._prefetch_results(w)
-                    dt = time.time() - t0
-                    _M_STAGE_SECONDS.labels(stage="evaluate").inc(dt)
-                    _M_STAGE_TASKS.labels(stage="evaluate").inc()
-                    lbl = device_label(w.device)
-                    _M_DEV_TASKS.labels(device=lbl).inc()
-                    _M_DEV_BUSY.labels(device=lbl).inc(dt)
-                    w.elements = None
-                    self._release_cache(w)
+                    # a streamed task decodes its chunks inline; the
+                    # carry-miss fallback loads through fb_tls — NOT tls,
+                    # whose decoder sessions are suspended mid-run
+                    self._evaluate_stage(
+                        info, te, w, fb_tls,
+                        None if w.chunk_plans is None
+                        else self._iter_chunk_items(info, w, tls))
                 except Exception as e:  # noqa: BLE001
-                    self._fail_inline(w, e)
+                    self._fail_task(w, e)
                     if on_task_error is not None and on_task_error(w, e):
                         continue
                     raise
                 if on_eval_done is not None:
                     on_eval_done(w)
                 try:
-                    t0 = time.time()
-                    with self._task_scope(w):
-                        with self.profiler.span("save", level=0,
-                                                task=w.task_idx,
-                                                job=w.job.job_idx):
-                            self._save_task(info, w)
-                    _M_STAGE_SECONDS.labels(stage="save").inc(
-                        time.time() - t0)
-                    _M_STAGE_TASKS.labels(stage="save").inc()
-                    self._task_trace_end(w)
+                    self.save_results(info, w)
                     if on_done is not None:
                         on_done(w)
                 except Exception as e:  # noqa: BLE001
-                    self._fail_inline(w, e)
+                    self._fail_task(w, e)
                     if on_task_error is not None and on_task_error(w, e):
                         continue
                     raise
@@ -1172,9 +1079,7 @@ class LocalExecutor:
                 if show_progress:
                     print(f"\rtasks {done}/{total}", end="", flush=True)
         finally:
-            for ns in (tls, fb_tls):
-                for auto in getattr(ns, "automata", {}).values():
-                    auto.close()
+            self._close_decoders(tls, fb_tls)
             if close_evaluators:
                 te.close()
         if done:
@@ -1187,67 +1092,123 @@ class LocalExecutor:
                         save: bool = True,
                         span_attrs: Optional[Dict[str, Any]] = None
                         ) -> TaskItem:
-        """Run ONE task stage-inline on this thread: load → evaluate
-        (→ save), on this executor's device.  The gang-member path
-        (engine/gang.py): a gang task executes inside a dedicated member
-        process, synchronized with its peers by collectives rather than
-        by the streaming pipeline, and only member 0 saves — so the
-        member defers `save` until the cross-host agreement check passes
-        (`save_results` finishes the job).  `span_attrs` land on the
-        task span (gang id / epoch / member rank, so per-host stragglers
-        stay attributable under the gang root span).  Returns `w` with
-        `.results` populated."""
+        """Run ONE whole task stage-inline on this thread: load →
+        evaluate (→ save), on this executor's device.  The gang-member
+        path (engine/gang.py): a gang task executes inside a dedicated
+        member process, synchronized with its peers by collectives
+        rather than by the streaming pipeline, and only member 0 saves —
+        so the member defers `save` until the cross-host agreement check
+        passes (`save_results` finishes the job).  The task never
+        streams, whatever its job says: a sharded member's halo rows
+        (halo_drop / halo_fill) are handled on the whole-task load only.
+        `span_attrs` land on the task span (gang id / epoch / member
+        rank, so per-host stragglers stay attributable under the gang
+        root span).  Returns `w` with `.results` populated."""
         import types
         tls = types.SimpleNamespace()
         fb_tls = types.SimpleNamespace()
-        if w.trace_span is None and w.trace_ctx is not None:
-            w.trace_span = _tr.open_span(
-                self.tracer, "task", parent=w.trace_ctx,
-                job=w.job.job_idx, task=w.task_idx, attempt=w.attempt,
-                **(span_attrs or {}))
+        self._task_trace_begin(w, **(span_attrs or {}))
         w.instance = 0
         w.device = assigned_device(self.device, 0)
         te = None
         try:
             with self._task_scope(w):
-                self.load_task(info, w, tls)
+                self.load_task(info, w, tls, whole=True)
             te = TaskEvaluator(info, self.profiler, self.device,
                                stage=self.stage, instance=0)
-            with self._task_scope(w), \
-                    self.profiler.span("evaluate", level=0,
-                                       task=w.task_idx,
-                                       job=w.job.job_idx):
-                w.results = self._evaluate_with_fallback(
-                    info, te, w, fb_tls)
-            self._prefetch_results(w)
-            w.elements = None
-            self._release_cache(w)
+            self._evaluate_stage(info, te, w, fb_tls)
             if save:
                 self.save_results(info, w)
             return w
         except Exception as e:  # noqa: BLE001
-            self._fail_inline(w, e)
+            self._fail_task(w, e)
             raise
         finally:
-            for auto in getattr(tls, "automata", {}).values():
-                auto.close()
+            self._close_decoders(tls, fb_tls)
             if te is not None:
                 te.close()
 
+    # ------------------------------------------------------------------
+    # The stage core: one task's evaluate and save, and the cleanup of a
+    # failed task — shared by the threaded pipeline, the serial loop and
+    # run_single_task
+    # ------------------------------------------------------------------
+
+    def _evaluate_stage(self, info: A.GraphInfo, te, w: TaskItem, fb_tls,
+                        chunks=None) -> None:
+        """The evaluate stage of one task: run it on `te` — a streamed
+        task over `chunks`, its (plan, elements) iterator, a whole task
+        (`chunks` None) as its one plan — into `w.results`, start the
+        sinks' device->host copy, count the stage, and drop the task's
+        columns and cache pins.  A failure aborts the task's chunk
+        producer, if it has one, and propagates."""
+        t0 = time.time()
+        try:
+            with self._task_scope(w), \
+                    self.profiler.span("evaluate", level=0,
+                                       task=w.task_idx, job=w.job.job_idx):
+                if _faults.ACTIVE:
+                    _faults.inject(
+                        "pipeline.eval",
+                        detail=f"task={w.job.job_idx},{w.task_idx}")
+                if chunks is None:
+                    w.results = self._execute_chunk(info, te, w, w.plan,
+                                                    w.elements, fb_tls)
+                else:
+                    # merge per-sink results in row order
+                    parts: Dict[int, List[ColumnBatch]] = {}
+                    n = 0
+                    for plan, elements in chunks:
+                        res = self._execute_chunk(info, te, w, plan,
+                                                  elements, fb_tls)
+                        for sid, b in res.items():
+                            parts.setdefault(sid, []).append(b)
+                        n += 1
+                    self.profiler.count("stream_chunks", n)
+                    w.results = {sid: concat_batches(lst)
+                                 for sid, lst in parts.items()}
+        except BaseException:
+            if w.chunk_abort is not None:
+                w.chunk_abort.set()  # unblock a producing loader
+            raise
+        # start the sink d2h now: the copy rides under the NEXT task's
+        # evaluation instead of blocking the saver
+        self._prefetch_results(w)
+        dt = time.time() - t0
+        _M_STAGE_SECONDS.labels(stage="evaluate").inc(dt)
+        _M_STAGE_TASKS.labels(stage="evaluate").inc()
+        lbl = device_label(w.device)
+        _M_DEV_TASKS.labels(device=lbl).inc()
+        _M_DEV_BUSY.labels(device=lbl).inc(dt)
+        w.elements = None
+        # evaluation is done with the cached pages: unpin them (the sink
+        # batches are the task's own tensors, never cache pages)
+        self._release_cache(w)
+
     def save_results(self, info: A.GraphInfo, w: TaskItem) -> None:
-        """Persist a task's evaluated results and close its span — the
-        deferred half of `run_single_task(save=False)`, run by a gang's
-        single writer (member 0) only after the collective agreement
+        """The save stage of one task: persist its evaluated results,
+        count the stage and close the task's span.  The saver threads
+        and the serial loop call it before `on_done`; a gang's single
+        writer (member 0) calls it as the deferred half of
+        `run_single_task(save=False)`, once the collective agreement
         check passed."""
-        with self._task_scope(w):
-            with self.profiler.span("save", level=0, task=w.task_idx,
-                                    job=w.job.job_idx):
-                self._save_task(info, w)
+        t0 = time.time()
+        with self._task_scope(w), \
+                self.profiler.span("save", level=0, task=w.task_idx,
+                                   job=w.job.job_idx):
+            self._save_task(info, w)
+        _M_STAGE_SECONDS.labels(stage="save").inc(time.time() - t0)
+        _M_STAGE_TASKS.labels(stage="save").inc()
+        # close the span BEFORE on_done: the cluster worker's completion
+        # hook ships spans then sends FinishedWork, so the master holds
+        # this task's full chain before the bulk can finish
         self._task_trace_end(w)
 
-    def _fail_inline(self, w: TaskItem, e: BaseException) -> None:
-        """Close a failed task's span and drop what it holds (staged
-        columns, results, cache pins) — the serial path's cleanup."""
+    def _fail_task(self, w: TaskItem, e: BaseException) -> None:
+        """Close a failed task's span and drop what it holds NOW (staged
+        columns, results, cache pins): a task requeued after memory
+        pressure must not keep holding the very device buffers that
+        caused it, and cache pins must not outlive the attempt."""
         if w.trace_span is not None:
             w.trace_span.add_event("error", type=type(e).__name__,
                                    message=str(e)[:200])
@@ -1255,6 +1216,52 @@ class LocalExecutor:
         w.elements = None
         w.results = None
         self._release_cache(w)
+
+    @staticmethod
+    def _put_until(q: "queue.Queue", item, stop: threading.Event,
+                   abort: Optional[threading.Event] = None) -> bool:
+        """Put on a bounded queue, giving up (False) once `stop` — or
+        `abort`, where given — is set: a consumer that died must not
+        block its producer forever."""
+        while not (stop.is_set() or (abort is not None and abort.is_set())):
+            try:
+                q.put(item, timeout=0.25)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _execute_chunk(self, info: A.GraphInfo, te, w: TaskItem, plan,
+                       elements, fb_tls) -> Dict[int, ColumnBatch]:
+        """Run one chunk of a task (a whole task is its one chunk).  On
+        a StateCarryMiss — the affinity chain's premise broke:
+        reordering, a failed predecessor, another instance — re-derive
+        the chunk's self-contained plan, reload and pre-stage its
+        sources through `fb_tls`, and run it again.  Affinity is an
+        optimization only."""
+        try:
+            return te.execute_task(w.job.jr, plan, elements)
+        except StateCarryMiss as e:
+            _log.info("task (%d,%d) rows %s: %s — re-running "
+                      "self-contained", w.job.job_idx, w.task_idx,
+                      plan.output_range, e)
+            self.profiler.count("state_carry_miss")
+            if w.chunk_plans is None:
+                _tr.add_event("state_carry_miss")
+            else:
+                _tr.add_event("state_carry_miss",
+                              chunk=str(plan.output_range))
+            plan2 = A.derive_task_streams(
+                info, w.job.jr, plan.output_range,
+                job_idx=w.job.job_idx, task_idx=w.task_idx)
+            tmp = TaskItem(w.job, w.task_idx, plan.output_range,
+                           plan=plan2, device=w.device)
+            try:
+                tmp.elements = self._load_sources(info, tmp, fb_tls)
+                self._prestage_device_columns(info, tmp)
+                return te.execute_task(w.job.jr, plan2, tmp.elements)
+            finally:
+                self._release_cache(tmp)
 
     # ------------------------------------------------------------------
     # Work-packet streaming (PerfParams.stream_work_packets)
@@ -1410,150 +1417,71 @@ class LocalExecutor:
             _M_STAGE_SECONDS.labels(stage="load").inc(time.time() - t0)
             yield plan, elements
 
-    def _chunk_put(self, w: TaskItem, item, stop) -> bool:
-        while True:
-            if (stop is not None and stop.is_set()) \
-                    or w.chunk_abort.is_set():
-                return False
-            try:
-                w.chunk_q.put(item, timeout=0.25)
-                return True
-            except queue.Full:
-                pass
-
     def _produce_chunks(self, info: A.GraphInfo, w: TaskItem, tls,
-                        stop=None) -> None:
+                        stop: threading.Event) -> None:
         """Loader-side: decode chunks into the task's bounded queue; a
         consumer failure (chunk_abort) or pipeline stop unblocks us."""
         try:
             for item in self._iter_chunk_items(info, w, tls):
-                if not self._chunk_put(w, item, stop):
+                if not self._put_until(w.chunk_q, item, stop, w.chunk_abort):
                     return
-            self._chunk_put(w, _CHUNK_DONE, stop)
+            self._put_until(w.chunk_q, _CHUNK_DONE, stop, w.chunk_abort)
         except Exception as e:  # noqa: BLE001 — surfaces on the consumer
-            self._chunk_put(w, (_CHUNK_ERR, e), stop)
+            self._put_until(w.chunk_q, (_CHUNK_ERR, e), stop, w.chunk_abort)
         finally:
             # aborted task (consumer failure, pipeline stop): unpin
             # frame-cache pages HERE — production has ended, so no later
             # append races this release; the consumer's own release
             # paths cover the normal completion order
-            if (w.chunk_abort is not None and w.chunk_abort.is_set()) \
-                    or (stop is not None and stop.is_set()):
+            if w.chunk_abort.is_set() or stop.is_set():
                 self._release_cache(w)
 
-    def _consume_iter(self, info: A.GraphInfo, te, w: TaskItem,
-                      chunk_iter, fb_tls) -> Dict[int, ColumnBatch]:
-        """Execute (plan, elements) chunks from any iterator; merge
-        per-sink results in row order (shared by the threaded queue
-        consumer and the serial NO_PIPELINING path)."""
-        if _faults.ACTIVE:
-            _faults.inject("pipeline.eval",
-                           detail=f"task={w.job.job_idx},{w.task_idx}")
-        parts: Dict[int, List[ColumnBatch]] = {}
-        n = 0
-        for plan, elements in chunk_iter:
-            res = self._execute_chunk(info, te, w, plan, elements, fb_tls)
-            for sid, b in res.items():
-                parts.setdefault(sid, []).append(b)
-            n += 1
-        self.profiler.count("stream_chunks", n)
-        return {sid: concat_batches(lst) for sid, lst in parts.items()}
-
-    def _consume_chunks(self, info: A.GraphInfo, te, w: TaskItem, fb_tls,
-                        stop=None) -> Dict[int, ColumnBatch]:
-        """Evaluator-side: execute chunks as they arrive over the
-        producer queue.  Any failure aborts the producer."""
-
-        def from_queue():
+    def _queued_chunks(self, w: TaskItem, stop: threading.Event):
+        """Evaluator-side: yield a streamed task's chunks as its loader
+        puts them on the task's queue, recording the waits."""
+        while True:
+            t0 = time.time()
             while True:
-                t0 = time.time()
-                while True:
-                    try:
-                        item = w.chunk_q.get(timeout=0.25)
-                        break
-                    except queue.Empty:
-                        if stop is not None and stop.is_set():
-                            raise JobException(
-                                "pipeline stopped during streaming task")
-                waited = time.time() - t0
-                _M_CHUNK_WAIT.inc(waited)
-                if waited > 0.005:
-                    # starvation attribution: time the evaluator spent
-                    # waiting on the loader's chunk production (decode
-                    # slower than compute shows up here, not as inflated
-                    # kernel spans)
-                    self.profiler.add_interval(
-                        "evaluate:chunk_wait", t0, t0 + waited, level=1,
-                        task=w.task_idx, job=w.job.job_idx)
-                if item is _CHUNK_DONE:
-                    return
-                if isinstance(item, tuple) and item[0] is _CHUNK_ERR:
-                    raise item[1]
-                yield item
+                try:
+                    item = w.chunk_q.get(timeout=0.25)
+                    break
+                except queue.Empty:
+                    if stop.is_set():
+                        raise JobException(
+                            "pipeline stopped during streaming task")
+            waited = time.time() - t0
+            _M_CHUNK_WAIT.inc(waited)
+            if waited > 0.005:
+                # starvation attribution: time the evaluator spent
+                # waiting on the loader's chunk production (decode
+                # slower than compute shows up here, not as inflated
+                # kernel spans)
+                self.profiler.add_interval(
+                    "evaluate:chunk_wait", t0, t0 + waited, level=1,
+                    task=w.task_idx, job=w.job.job_idx)
+            if item is _CHUNK_DONE:
+                return
+            if isinstance(item, tuple) and item[0] is _CHUNK_ERR:
+                raise item[1]
+            yield item
 
-        try:
-            return self._consume_iter(info, te, w, from_queue(), fb_tls)
-        except BaseException:
-            w.chunk_abort.set()
-            raise
-
-    def _execute_chunk(self, info: A.GraphInfo, te, w: TaskItem, plan,
-                       elements, fb_tls) -> Dict[int, ColumnBatch]:
-        try:
-            return te.execute_task(w.job.jr, plan, elements)
-        except StateCarryMiss as e:
-            _log.info("task (%d,%d) chunk %s: %s — re-running "
-                      "self-contained", w.job.job_idx, w.task_idx,
-                      plan.output_range, e)
-            self.profiler.count("state_carry_miss")
-            _tr.add_event("state_carry_miss", chunk=str(plan.output_range))
-            plan2 = A.derive_task_streams(
-                info, w.job.jr, plan.output_range,
-                job_idx=w.job.job_idx, task_idx=w.task_idx)
-            tmp = TaskItem(w.job, w.task_idx, plan.output_range,
-                           plan=plan2, device=w.device)
-            try:
-                elements2 = self._load_sources(info, tmp, fb_tls)
-                return te.execute_task(w.job.jr, plan2, elements2)
-            finally:
-                self._release_cache(tmp)
-
-    def _evaluate_with_fallback(self, info: A.GraphInfo, te, w: TaskItem,
-                                fb_tls):
-        """Run a task; on a StateCarryMiss (the affinity chain's premise
-        broke — reordering, failed predecessor, different instance)
-        re-derive the self-contained plan, reload its sources, and run
-        again.  Affinity is an optimization only."""
-        if _faults.ACTIVE:
-            _faults.inject("pipeline.eval",
-                           detail=f"task={w.job.job_idx},{w.task_idx}")
-        try:
-            return te.execute_task(w.job.jr, w.plan, w.elements)
-        except StateCarryMiss as e:
-            _log.info("task (%d,%d): %s — re-running self-contained",
-                      w.job.job_idx, w.task_idx, e)
-            self.profiler.count("state_carry_miss")
-            _tr.add_event("state_carry_miss")
-            w.plan = A.derive_task_streams(
-                info, w.job.jr, w.output_range,
-                job_idx=w.job.job_idx, task_idx=w.task_idx)
-            w.elements = self._load_sources(info, w, fb_tls)
-            self._prestage_device_columns(info, w)
-            return te.execute_task(w.job.jr, w.plan, w.elements)
-
-    def load_task(self, info: A.GraphInfo, w: TaskItem, tls) -> TaskItem:
+    def load_task(self, info: A.GraphInfo, w: TaskItem, tls, *,
+                  whole: bool = False) -> TaskItem:
         """The load stage: derive the task's row plan and read/decode its
         source elements (shared by the local pipeline and cluster
-        workers)."""
+        workers).  A task streams as its job says
+        (JobContext.stream_work_packets) unless `whole` asks for the
+        whole task (run_single_task)."""
         t0 = time.time()
         # success-only, like the evaluate/save stage counters: a failing
         # load must not read as the load stage racing ahead
-        out = self._load_task(info, w, tls)
+        out = self._load_task(info, w, tls, whole)
         _M_STAGE_SECONDS.labels(stage="load").inc(time.time() - t0)
         _M_STAGE_TASKS.labels(stage="load").inc()
         return out
 
-    def _load_task(self, info: A.GraphInfo, w: TaskItem, tls) -> TaskItem:
+    def _load_task(self, info: A.GraphInfo, w: TaskItem, tls,
+                   whole: bool) -> TaskItem:
         if _faults.ACTIVE:
             _faults.inject("pipeline.decode",
                            detail=f"task={w.job.job_idx},{w.task_idx}")
@@ -1564,7 +1492,8 @@ class LocalExecutor:
                 else None
             start, end = w.output_range
             wp = int(getattr(w.job.jr, "work_packet_size", 0) or 0)
-            if self._stream_opt and wp > 0 and (end - start) > wp:
+            if w.job.stream_work_packets and not whole and wp > 0 \
+                    and (end - start) > wp:
                 # Work-packet streaming (reference element cache +
                 # feeder, evaluate_worker.h:207-218): the task's io
                 # packet never materializes whole — per-chunk plans
@@ -1883,6 +1812,15 @@ class LocalExecutor:
         leases, w.cache_leases = w.cache_leases, None
         for lease in leases or ():
             lease.release()
+
+    @staticmethod
+    def _close_decoders(*spaces) -> None:
+        """Close the decoder handles each thread namespace holds
+        (_automata) and forget them."""
+        for ns in spaces:
+            for auto in getattr(ns, "automata", {}).values():
+                auto.close()
+            ns.automata = {}
 
     def _automata(self, tls, job: JobContext, node_id: int, si,
                   item: int = 0, output_format: str = "rgb24"):

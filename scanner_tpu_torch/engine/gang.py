@@ -846,7 +846,6 @@ def _member_body(req: Dict[str, Any], pid: int, num: int,
     db.refresh_meta()
     ex = LocalExecutor(db, device=torch.device(req["device"]))
     ex.tracer = tracer
-    ex._stream_opt = False  # whole-task evaluation inside the member
     spec = cloudpickle.loads(req["spec"])
     info, jobs = ex.prepare_readonly(spec["outputs"], spec["perf"])
     job = jobs[int(req["job_idx"])]

@@ -3337,7 +3337,6 @@ class WorkerPipeline:
         # sticky assignment hands us a job's tasks in order (any break
         # degrades to self-contained plans / StateCarryMiss re-runs)
         ex.setup_chains(info, jobs, perf)
-        ex._stream_opt = bool(getattr(perf, "stream_work_packets", True))
         self.close()
         self.info, self.jobs = info, jobs
 

@@ -10,6 +10,8 @@ tensors, which runs the tensor path the card takes (pinned staging is
 skipped on the CPU, the YUV420 wire converts with torch, the histogram
 wrapper takes its plain version)."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 import scanner_tpu as sj
 import scanner_tpu.kernels  # noqa: F401  (registers the stdlib ops)
 from scanner_tpu import video as scv
+from scanner_tpu.engine import framecache as jfc
 
 import scanner_tpu_torch as st
 import scanner_tpu_torch.kernels  # noqa: F401
@@ -26,6 +29,15 @@ from torch_model_checks import stop_process_engine  # noqa: F401
 
 N, W, H = 48, 128, 96
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_frame_cache():
+    """Clear the JAX package's frame cache after this file: its pages
+    are live entries of the JAX allocation ledger, which a later file in
+    the same worker process reads (tests/test_memstats.py)."""
+    yield
+    jfc.cache().clear()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

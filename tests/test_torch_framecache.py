@@ -39,6 +39,15 @@ from torch_model_checks import stop_process_engine  # noqa: F401
 N_FRAMES, W, H = 48, 64, 48
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_frame_cache():
+    """Clear the JAX package's frame cache after this file: its pages
+    are live entries of the JAX allocation ledger, which a later file in
+    the same worker process reads (tests/test_memstats.py)."""
+    yield
+    jfc.cache().clear()
+    gc.collect()
+
 
 @pytest.fixture(autouse=True)
 def _cache_state():

@@ -18,6 +18,7 @@ engine/evaluate.py FusedKernelInstance), held against the JAX package.
    silent, and the warm-up warms the chain's ladder.
 """
 
+import gc
 from typing import Sequence
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 import scanner_tpu as sj
 import scanner_tpu.kernels  # noqa: F401  (registers the stdlib ops)
 from scanner_tpu import video as scv
+from scanner_tpu.engine import framecache as jfc
 from scanner_tpu.graph import analysis as JA
 from scanner_tpu.graph import fusion as jfusion
 from scanner_tpu.graph import ops as JO
@@ -46,6 +48,16 @@ from torch_model_checks import stop_process_engine  # noqa: F401
 
 N_FRAMES = 50
 W, H = 64, 48
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_frame_cache():
+    """Clear the JAX package's frame cache after this file: its pages
+    are live entries of the JAX allocation ledger, which a later file in
+    the same worker process reads (tests/test_memstats.py)."""
+    yield
+    jfc.cache().clear()
+    gc.collect()
 
 
 @pytest.fixture(autouse=True, scope="module")
