@@ -54,22 +54,54 @@ _M_D2H_SECONDS = _mx.registry().counter(
     "Seconds spent blocking on device->host fetches.")
 
 
+def pinned_empty(shape: tuple, dtype) -> "np.ndarray":
+    """An uninitialised host array in PyTorch's pinned (page-locked)
+    memory, the whole of a pinned tensor, which `staged_device_put`
+    ships to a CUDA device with no copy of its own; a plain `np.empty`
+    for a dtype a tensor cannot hold."""
+    try:
+        torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    except (TypeError, ValueError):
+        return np.empty(shape, dtype)
+    try:
+        return torch.empty(shape, dtype=torch_dtype, pin_memory=True).numpy()
+    except Exception as e:
+        if _ms.is_oom(e):
+            _ms.note_oom(e, site="staging", detail=f"pinned {shape} {dtype}")
+        raise
+
+
+def _pinned_whole(host: "np.ndarray") -> Optional[torch.Tensor]:
+    """The pinned tensor `host` is the whole of (`pinned_empty`), or
+    None."""
+    t = host.base
+    if (isinstance(t, torch.Tensor) and t.is_pinned()
+            and tuple(t.shape) == host.shape
+            and t.data_ptr() == host.ctypes.data):
+        return t
+    return None
+
+
 def staged_device_put(host: "np.ndarray", device, kind: str,
                       fault_detail: str) -> torch.Tensor:
     """The ONE engine host->device staging contract: the memory.pressure
     fault site, out-of-memory forensics (site=staging), the shared h2d
     byte/second meters and an allocation-ledger registration under
     `kind`, around one copy of `host` into pinned memory and an
-    asynchronous (non_blocking) copy of that onto `device`.  PyTorch's
-    pinned-memory allocator keeps the pinned buffer alive until the copy
-    on the current stream is done."""
+    asynchronous (non_blocking) copy of that onto `device`.  A `host`
+    already in pinned memory (`pinned_empty`) skips the first copy; its
+    owner writes it no more.  PyTorch's pinned-memory allocator hands the
+    pinned buffer out again only once the copy on the current stream is
+    done."""
     t0 = time.time()
     try:
         if _faults.ACTIVE:
             _faults.inject("memory.pressure", detail=fault_detail)
-        src = torch.from_numpy(np.ascontiguousarray(host))
-        if device.type == "cuda":
-            src = src.pin_memory()
+        src = _pinned_whole(host) if device.type == "cuda" else None
+        if src is None:
+            src = torch.from_numpy(np.ascontiguousarray(host))
+            if device.type == "cuda":
+                src = src.pin_memory()
         data = src.to(device, non_blocking=True)
     except Exception as e:
         if _ms.is_oom(e):

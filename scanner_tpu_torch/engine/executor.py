@@ -44,7 +44,7 @@ from ..util.profiler import Profiler
 from ..util.torchprof import device_trace
 from . import controller as _controller
 from . import framecache as _fc
-from .batch import ColumnBatch, concat_batches
+from .batch import ColumnBatch, concat_batches, pinned_empty
 from .evaluate import (StateCarryMiss, TaskEvaluator, assigned_device,
                        device_label)
 
@@ -1412,7 +1412,8 @@ class LocalExecutor:
                         elements[nid] = feeds[nid].batch_for(rows)
                     else:
                         elements[nid] = self._load_plain_source(
-                            w, nid, [int(r) for r in rows], tls)
+                            w, nid, [int(r) for r in rows], tls,
+                            pin=self._pins_decode(info, w, nid))
                 self._prestage_device_columns(info, w, elements=elements)
             _M_STAGE_SECONDS.labels(stage="load").inc(time.time() - t0)
             yield plan, elements
@@ -1601,6 +1602,15 @@ class LocalExecutor:
         once, on the device)."""
         return self.stage and self._column_device_bound(info, node_id)
 
+    def _pins_decode(self, info: A.GraphInfo, w: TaskItem,
+                     node_id: int) -> bool:
+        """Should this column's rows decode into pinned host memory?  Yes
+        when the loader stages the column onto a CUDA device
+        (`_prestage_device_columns`), which then ships the batch with no
+        copy of its own."""
+        return (self.stage and getattr(w.device, "type", None) == "cuda"
+                and self._column_device_bound(info, node_id))
+
     def _column_device_bound(self, info: A.GraphInfo, node_id: int) -> bool:
         with self._device_bound_lock:
             cache = self._device_bound_cache
@@ -1644,8 +1654,9 @@ class LocalExecutor:
             rows_arr = np.asarray(rows, np.int64)
             rows_l = [int(r) for r in rows]
             if not si["is_video"]:
-                out[node_id] = self._load_plain_source(w, node_id, rows_l,
-                                                       tls)
+                out[node_id] = self._load_plain_source(
+                    w, node_id, rows_l, tls,
+                    pin=self._pins_decode(info, w, node_id))
             elif si["is_video"]:
                 # rows are global; multi-item video tables (job outputs)
                 # hold one independently-decodable item per task
@@ -1695,11 +1706,13 @@ class LocalExecutor:
         return out
 
     def _load_plain_source(self, w: TaskItem, node_id: int,
-                           rows_l: List[int], tls) -> ColumnBatch:
+                           rows_l: List[int], tls,
+                           pin: bool) -> ColumnBatch:
         """Non-video source rows: custom-storage reads or column loads
         (shared by the whole-task and per-chunk streaming loaders).  A
         column load reads into the row buffer `tls` keeps, and decodes
-        before this thread's next read reuses it."""
+        before this thread's next read reuses it, into one batch
+        (`decode_rows_into`): in pinned memory with `pin`."""
         si = w.job.source_info[node_id]
         rows_arr = np.asarray(rows_l, np.int64)
         n = len(rows_l)
@@ -1709,7 +1722,7 @@ class LocalExecutor:
             with self.profiler.span("load:decode", rows=n):
                 return ColumnBatch.from_elements(rows_arr, vals)
         from ..storage.items import RowBuffer
-        from ..storage.streams import DECODE_COPIES, decode_element
+        from ..storage.streams import DECODE_COPIES, decode_rows_into
         desc = si["table"]
         codec = si.get("codec", "raw")
         buf = getattr(tls, "row_buffer", None)
@@ -1727,8 +1740,15 @@ class LocalExecutor:
         self.profiler.count("load_read_fresh" if buf.grew
                             else "load_read_kept")
         with self.profiler.span("load:decode", rows=n):
-            return ColumnBatch.from_elements(
-                rows_arr, [decode_element(v, codec) for v in vals])
+            got = decode_rows_into(vals, codec,
+                                   pinned_empty if pin else np.empty)
+            if got.direct:
+                self.profiler.count("load_decode_direct", got.direct)
+            if got.generic:
+                self.profiler.count("load_decode_generic", got.generic)
+            if isinstance(got.data, np.ndarray):
+                return ColumnBatch(rows_arr, got.data, got.nulls)
+            return ColumnBatch.from_elements(rows_arr, got.data)
 
     def _cache_eligible(self, info: A.GraphInfo, node_id: int) -> bool:
         """Frame-cache eligibility for one video column: the cache holds

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import pickle
 import struct
-from typing import Any, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
@@ -37,6 +38,128 @@ def decode_element(blob: Optional[bytes], codec: str):
         from ..video.ingest import decode_image
         return decode_image(blob)
     return blob
+
+
+class DecodedRows(NamedTuple):
+    """A run of rows `decode_rows_into` decoded.  `data` is one batch
+    (axis 0 = rows; null rows zero, flagged in `nulls`), or, where the
+    rows are not arrays of one shape and dtype, the list of decoded
+    elements for `ColumnBatch.from_elements`.  `direct` pickle rows
+    were copied into the batch by their learned layout, `generic` ones
+    went through `pickle.loads`."""
+    data: Any
+    nulls: Optional[np.ndarray]
+    direct: int
+    generic: int
+
+
+# candidate payload offsets tried before a run's rows all take
+# pickle.loads: a payload of repeated bytes also matches where it
+# overlaps the pickle's own bytes
+_LAYOUT_TRIES = 4
+
+
+def _row_layout(blob, obj) -> Optional[Tuple[int, bytes, bytes]]:
+    """Where the pickle `blob` holds the bytes of the array `obj` it
+    unpickles to: (offset, prefix, suffix) such that every blob of the
+    same length that starts with `prefix` and ends with `suffix`
+    unpickles to an array of `obj`'s shape, dtype and order whose bytes
+    are the blob's at `offset`.  Proved by unpickling a probe, the blob
+    with every payload byte inverted; None where no offset passes (an
+    object array, a Fortran-ordered one, a payload not stored
+    verbatim)."""
+    if (type(obj) is not np.ndarray or obj.dtype.hasobject
+            or not obj.flags.c_contiguous or obj.nbytes == 0):
+        return None
+    needle = obj.reshape(-1).view(np.uint8)
+    n = len(needle)
+    probe = bytearray(blob)
+    window = np.frombuffer(probe, np.uint8)
+    last = len(probe) - n  # the last offset the payload can start at
+    if last < 0:
+        return None
+    # offsets where the payload's first and last k bytes lie, last first
+    k = min(n, 64)
+    view = np.lib.stride_tricks.sliding_window_view
+    starts = (view(window[:last + k], k) == needle[:k]).all(1)
+    ends = (view(window[n - k:last + n], k) == needle[-k:]).all(1)
+    for off in np.flatnonzero(starts & ends)[::-1][:_LAYOUT_TRIES]:
+        np.invert(needle, out=window[off:off + n])
+        try:
+            got = pickle.loads(probe)
+        except Exception:  # noqa: BLE001 — the probe broke the pickle
+            got = None
+        if (type(got) is np.ndarray and got.shape == obj.shape
+                and got.dtype == obj.dtype and got.flags.c_contiguous
+                and probe[off:off + n]
+                == got.reshape(-1).view(np.uint8).data):
+            # the probe's prefix and suffix are the blob's own
+            return int(off), bytes(probe[:off]), bytes(probe[off + n:])
+        window[off:off + n] = needle
+    return None
+
+
+def decode_rows_into(vals: Sequence[Optional[Any]], codec: str,
+                     alloc: Callable[[tuple, np.dtype], np.ndarray]
+                     ) -> DecodedRows:
+    """Decode a run of stored rows (bytes or views, None for a null
+    row) into one batch that `alloc(shape, dtype)` gives.
+
+    For the `pickle` codec the run's first live row is unpickled and, if
+    it is a C-contiguous array, its layout learned (`_row_layout`): every
+    row of the same length, prefix and suffix then decodes to the same
+    shape, dtype and order, so its payload is copied into its slot with
+    one numpy copy, no Python object made.  A row that does not match is
+    unpickled and assigned into its slot if its shape and dtype are the
+    batch's; a row of another shape, or anything not an array, sends the
+    run to the element list, as `ColumnBatch.from_elements` takes it.
+    Other codecs decode row by row (`decode_element`) into the list."""
+    if codec != "pickle":
+        return DecodedRows([decode_element(v, codec) for v in vals],
+                           None, 0, 0)
+    live = [i for i, v in enumerate(vals) if v is not None]
+    if not live:
+        return DecodedRows([NullElement()] * len(vals), None, 0, 0)
+    first = pickle.loads(vals[live[0]])
+    if type(first) is not np.ndarray or first.dtype.hasobject:
+        elems: List[Any] = [NullElement()] * len(vals)
+        elems[live[0]] = first
+        for i in live[1:]:
+            elems[i] = pickle.loads(vals[i])
+        return DecodedRows(elems, None, 0, len(live))
+    out = alloc((len(vals),) + first.shape, first.dtype)
+    layout = _row_layout(vals[live[0]], first)
+    if layout is not None:
+        off, prefix, suffix = layout
+        rows = out.reshape(len(vals), -1).view(np.uint8)
+        tail = off + rows.shape[1]
+        size = tail + len(suffix)
+    nulls = np.zeros(len(vals), bool)
+    direct = generic = 0
+    for i, v in enumerate(vals):
+        if v is None:
+            nulls[i] = True
+            out[i] = 0
+            continue
+        if (layout is not None and len(v) == size
+                and v[:off] == prefix and v[tail:] == suffix):
+            rows[i] = np.frombuffer(v, np.uint8, rows.shape[1], off)
+            direct += 1
+            continue
+        obj = first if i == live[0] else pickle.loads(v)
+        generic += 1
+        if (isinstance(obj, np.ndarray) and obj.shape == first.shape
+                and obj.dtype == first.dtype):
+            out[i] = obj
+            continue
+        # not one batch: the rows so far as elements, then the rest
+        elems = [NullElement() if nulls[j] else out[j].copy()
+                 for j in range(i)] + [obj]
+        for rest in vals[i + 1:]:
+            elems.append(decode_element(rest, codec))
+            generic += rest is not None
+        return DecodedRows(elems, None, direct, generic)
+    return DecodedRows(out, nulls if nulls.any() else None, direct, generic)
 
 
 class StoredStream:
