@@ -1872,74 +1872,80 @@ class LocalExecutor:
                            detail=f"task={w.job.job_idx},{w.task_idx}")
         start, end = w.output_range
         for sink in info.sinks:
-            if sink.id in w.job.custom_sinks:
-                stream = w.job.custom_sinks[sink.id]
-                stream.storage.write_item(
-                    stream, start,
-                    self._sink_rows(w.results[sink.id], start, end))
+            custom = w.job.custom_sinks.get(sink.id)
+            if custom is None and sink.id not in w.job.sink_tables:
                 continue
-            if sink.id not in w.job.sink_tables:
-                continue
-            desc, col_name, codec, enc_opts = w.job.sink_tables[sink.id]
             # the single device->host fetch of the batched data path
-            rows = self._sink_rows(w.results[sink.id], start, end)
-            item_idx = w.task_idx
-            if codec == "frame":
-                mode = "video" if self._is_encodable(rows) else "pickle"
-                with w.job.sink_mode_lock:
-                    prev = w.job.sink_modes.get(sink.id)
-                    if prev is None:
-                        # cross-worker guard: exactly one writer (across all
-                        # processes) creates the durable marker; everyone
-                        # else reads the winner's mode (distributed savers
-                        # share no process state)
-                        marker = f"{md.table_dir(desc.id)}/.{col_name}.mode"
-                        if self.db.backend.write_exclusive(
-                                marker, mode.encode()):
-                            prev = mode
-                        else:
-                            prev = self.db.backend.read(marker).decode()
-                        w.job.sink_modes[sink.id] = prev
-                    if prev != mode:
-                        raise JobException(
-                            f"{desc.name}: mixed frame output types across "
-                            f"tasks ({prev} vs {mode}); kernels must "
-                            f"produce a consistent frame dtype")
-                    if mode == "pickle":
-                        self._demote_video_column(desc)
-                if mode == "video":
-                    self._write_video_item(w.job, desc, col_name, item_idx,
-                                           rows, enc_opts)
+            with self.profiler.span("save:fetch", sink=sink.id):
+                rows = self._sink_rows(w.results[sink.id], start, end)
+            with self.profiler.span("save:write", sink=sink.id):
+                if custom is not None:
+                    custom.storage.write_item(custom, start, rows)
                 else:
-                    # non-uint8/RGB frame data (e.g. float32 flow fields):
-                    # the reference stores these as RAW-format video
-                    # columns; here the column degrades to pickled arrays
-                    import pickle
-                    IT.write_item(
-                        self.db.backend,
-                        md.column_item_path(desc.id, col_name, item_idx),
-                        [e if isinstance(e, NullElement)
-                         else pickle.dumps(np.asarray(e),
-                                           protocol=pickle.HIGHEST_PROTOCOL)
-                         for e in rows])
-            else:
-                blobs = []
-                for e in rows:
-                    if isinstance(e, NullElement):
-                        blobs.append(e)
-                    elif codec == "raw":
-                        if not isinstance(e, (bytes, bytearray, memoryview)):
-                            raise JobException(
-                                f"{desc.name}: raw column got "
-                                f"{type(e).__name__}")
-                        blobs.append(bytes(e))
+                    self._write_sink_item(w, sink.id, rows)
+
+    def _write_sink_item(self, w: TaskItem, sid: int,
+                         rows: List[Any]) -> None:
+        """Serialize one task's fetched rows of table sink `sid` and
+        write them as the output column's item `w.task_idx`."""
+        desc, col_name, codec, enc_opts = w.job.sink_tables[sid]
+        item_idx = w.task_idx
+        if codec == "frame":
+            mode = "video" if self._is_encodable(rows) else "pickle"
+            with w.job.sink_mode_lock:
+                prev = w.job.sink_modes.get(sid)
+                if prev is None:
+                    # cross-worker guard: exactly one writer (across all
+                    # processes) creates the durable marker; everyone
+                    # else reads the winner's mode (distributed savers
+                    # share no process state)
+                    marker = f"{md.table_dir(desc.id)}/.{col_name}.mode"
+                    if self.db.backend.write_exclusive(
+                            marker, mode.encode()):
+                        prev = mode
                     else:
-                        import pickle
-                        blobs.append(pickle.dumps(
-                            e, protocol=pickle.HIGHEST_PROTOCOL))
-                IT.write_item(self.db.backend,
-                              md.column_item_path(desc.id, col_name,
-                                                  item_idx), blobs)
+                        prev = self.db.backend.read(marker).decode()
+                    w.job.sink_modes[sid] = prev
+                if prev != mode:
+                    raise JobException(
+                        f"{desc.name}: mixed frame output types across "
+                        f"tasks ({prev} vs {mode}); kernels must "
+                        f"produce a consistent frame dtype")
+                if mode == "pickle":
+                    self._demote_video_column(desc)
+            if mode == "video":
+                self._write_video_item(w.job, desc, col_name, item_idx,
+                                       rows, enc_opts)
+            else:
+                # non-uint8/RGB frame data (e.g. float32 flow fields):
+                # the reference stores these as RAW-format video
+                # columns; here the column degrades to pickled arrays
+                import pickle
+                IT.write_item(
+                    self.db.backend,
+                    md.column_item_path(desc.id, col_name, item_idx),
+                    [e if isinstance(e, NullElement)
+                     else pickle.dumps(np.asarray(e),
+                                       protocol=pickle.HIGHEST_PROTOCOL)
+                     for e in rows])
+        else:
+            blobs = []
+            for e in rows:
+                if isinstance(e, NullElement):
+                    blobs.append(e)
+                elif codec == "raw":
+                    if not isinstance(e, (bytes, bytearray, memoryview)):
+                        raise JobException(
+                            f"{desc.name}: raw column got "
+                            f"{type(e).__name__}")
+                    blobs.append(bytes(e))
+                else:
+                    import pickle
+                    blobs.append(pickle.dumps(
+                        e, protocol=pickle.HIGHEST_PROTOCOL))
+            IT.write_item(self.db.backend,
+                          md.column_item_path(desc.id, col_name,
+                                              item_idx), blobs)
 
     def _prefetch_results(self, w: TaskItem) -> None:
         """Kick off the async device->host copy of every sink batch the

@@ -1,5 +1,6 @@
-"""The flash-attention block update: a hand-written CUDA kernel and its
-plain version.
+"""The flash-attention block update, a hand-written CUDA kernel and its
+plain version; and the model path's attention with a decomposed
+relative-position bias (`rel_pos_attention`).
 
 The counterpart of the JAX package's kernels/pallas_attention.py.  Ring
 attention (parallel/ring_attention.py) consumes one arriving K/V block
@@ -23,6 +24,16 @@ each operand gets there), so the plain version fed those operands is
 the tight reference the card's checks hold it against.  The kernel is
 compiled with nvcc for sm_90a into `_build/` at first use and called
 through ctypes on PyTorch's current stream.
+
+`rel_pos_attention` is attention over a grid of keys with a decomposed
+relative-position bias, as a ViT with per-axis relative positions has
+it (models/sam.py calls it): softmax(q k^T / sqrt(d) + rel_h + rel_w)
+v, where the bias of query i and key j is rel_h[i, row of j] +
+rel_w[i, column of j].
+It builds that bias in full, in the inputs' dtype, and hands it to
+`torch.nn.functional.scaled_dot_product_attention` as a float mask
+(bf16 on the card, where SDPA picks a kernel that takes a bias; flash
+attention takes none).  The JAX package has no counterpart.
 """
 
 from __future__ import annotations
@@ -48,6 +59,12 @@ TF32_ROUNDING = {"q": "rna", "k": "trunc", "v": "rna"}
 
 # launches of the flash kernel (csrc/flash_attention.cu) in this process
 flash_launches = 0
+
+# rel_pos_attention lays each bias row out at a multiple of this many
+# elements: SDPA pads a float mask whose strides (but the last, 1) are
+# not multiples of 8 into a new copy before its memory-efficient
+# kernel reads it, and S = 196 in a 14 x 14 window is not
+BIAS_ALIGN = 8
 
 _SRC = os.path.join(native.PKG_DIR, "csrc", "flash_attention.cu")
 _lib = None
@@ -236,3 +253,29 @@ def _tma_operand(t: torch.Tensor, Dp: int) -> torch.Tensor:
     if t.data_ptr() % 16:
         t = t.clone()
     return t
+
+
+def rel_pos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      rel_h: torch.Tensor, rel_w: torch.Tensor
+                      ) -> torch.Tensor:
+    """Attention over a kh x kw grid of keys with a decomposed
+    relative-position bias.
+
+    q, k, v: (N, heads, S, d) with S = kh * kw keys in row-major order
+    (q may hold as many queries); rel_h: (N, heads, S, kh) and rel_w:
+    (N, heads, S, kw), each query's terms for a key's row and column.
+    Returns (N, heads, S, d): softmax(q k^T / sqrt(d) + bias) v with
+    bias[i, (r, c)] = rel_h[i, r] + rel_w[i, c], built in q's dtype."""
+    n, h, s, _ = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    if kh * kw != k.shape[2]:
+        raise ValueError(f"rel_h, rel_w give a {kh} x {kw} key grid for "
+                         f"{k.shape[2]} keys")
+    width = -(-k.shape[2] // BIAS_ALIGN) * BIAS_ALIGN
+    bias = torch.empty((n, h, s, width), dtype=q.dtype,
+                       device=q.device)[..., :k.shape[2]]
+    torch.add(rel_h.to(q.dtype).unsqueeze(-1),
+              rel_w.to(q.dtype).unsqueeze(-2),
+              out=bias.view(n, h, s, kh, kw))
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias)

@@ -41,7 +41,8 @@ caffe's OIHW layouts); the layer widths come from the file.  Without
 one, weights made from `seed` at the published widths, initialised so
 that the maps have a trained model's ranges (heatmaps about [0, 1],
 PAFs about [-1, 1]).  The weights one process loads are kept per file
-and device, so the kernel instance every job builds shares them.
+and device (`weight_cache`), so the kernel instance every job builds
+shares them.
 
 The op records three spans in its job's profile, inside
 `evaluate:OpenPose` (util/profiler.py `span`): `openpose:prep`,
@@ -52,8 +53,6 @@ and of any wait the launch queue forces.
 from __future__ import annotations
 
 import math
-import os
-import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +63,7 @@ from torch import nn
 from ..common import DeviceType, FrameType
 from ..graph.ops import Kernel, register_op
 from ..util import profiler as _prof
+from . import weight_cache
 from .infer import DataParallelApply
 
 NET_HEIGHT = 368          # OpenPose's default --net_resolution -1x368
@@ -239,53 +239,33 @@ def seeded_state(seed: int, widths: Optional[Dict[str, int]] = None
     return state
 
 
-def _npz_path(checkpoint_dir: str) -> str:
-    if os.path.isdir(checkpoint_dir):
-        found = sorted(f for f in os.listdir(checkpoint_dir)
-                       if f.endswith(".npz"))
-        if len(found) != 1:
-            raise ValueError(f"{checkpoint_dir}: expected one .npz weight "
-                             f"file, found {found}")
-        return os.path.join(checkpoint_dir, found[0])
-    return checkpoint_dir
-
-
-# (file or seed, device) -> the module's parameters, shared by every
-# kernel instance of this process (the engine builds one a job)
-_NETS: Dict[Tuple, Tuple[Dict[str, int], Dict[str, torch.Tensor]]] = {}
-_nets_lock = threading.Lock()
-
-
 def load_weights(checkpoint_dir: Optional[str], seed: int,
                  device) -> OpenPoseNet:
     """The network in bf16 and channels_last on `device`: weights from
     the caffe-named `.npz` `checkpoint_dir` (a file, or a directory
-    holding one), else made from `seed` at the published widths."""
+    holding one), else made from `seed` at the published widths.  The
+    parameters are built once per process (weight_cache.shared) and
+    shared by every kernel instance (the engine builds one a job)."""
     device = torch.device(device)
-    if checkpoint_dir:
-        path = os.path.realpath(_npz_path(checkpoint_dir))
-        st = os.stat(path)
-        key = (path, st.st_size, st.st_mtime_ns, str(device))
-    else:
-        key = ("seed", int(seed), str(device))
-    with _nets_lock:
-        if key in _NETS:
-            widths, params = _NETS[key]
+
+    def build(path):
+        if path is not None:
+            with np.load(path) as data:
+                state = {k: torch.from_numpy(data[k]) for k in data}
         else:
-            if checkpoint_dir:
-                with np.load(path) as data:
-                    state = {k: torch.from_numpy(data[k]) for k in data}
-            else:
-                state = seeded_state(seed)
-            widths = widths_of(state)
-            params = {}
-            for name, *_ in layer_specs(widths):
-                for leaf in ("weight", "bias"):
-                    t = state[f"{name}/{leaf}"].to(device, torch.bfloat16)
-                    if leaf == "weight":
-                        t = t.contiguous(memory_format=torch.channels_last)
-                    params[f"layers.{name}.{leaf}"] = t
-            _NETS[key] = (widths, params)
+            state = seeded_state(seed)
+        widths = widths_of(state)
+        params = {}
+        for name, *_ in layer_specs(widths):
+            for leaf in ("weight", "bias"):
+                t = state[f"{name}/{leaf}"].to(device, torch.bfloat16)
+                if leaf == "weight":
+                    t = t.contiguous(memory_format=torch.channels_last)
+                params[f"layers.{name}.{leaf}"] = t
+        return widths, params
+
+    widths, params = weight_cache.shared(
+        "OpenPose", checkpoint_dir, seed, device, torch.bfloat16, build)
     with torch.device("meta"):
         net = OpenPoseNet(**widths)
     net.load_state_dict(params, assign=True)

@@ -259,6 +259,14 @@ def span(name: str, level: int = 1, **args):
     return _NULL_SPAN if prof is None else prof.span(name, level, **args)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of this thread's current profiler
+    (`recording_into`); nothing when there is none."""
+    prof = getattr(_current, "prof", None)
+    if prof is not None:
+        prof.count(name, n)
+
+
 class Profile:
     """Aggregated job profile (reference scannerpy/profiler.py Profile)."""
 

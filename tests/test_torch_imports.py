@@ -73,7 +73,7 @@ PORTED_OPS = ["Blur", "CropResize", "FaceDetect", "FaceEmbedding",
               "Grayscale", "HistDiff", "Histogram", "HistogramDelta",
               "ImageDecode", "ImageEncode", "InstanceSegment",
               "ObjectDetect", "OpenPose", "OpticalFlow", "PoseDetect",
-              "Resize", "ShotBoundary"]
+              "Resize", "SamEmbed", "ShotBoundary"]
 
 
 def test_import_with_jax_blocked():
